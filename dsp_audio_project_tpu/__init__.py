@@ -1,15 +1,15 @@
-"""dsp_audio_project_tpu — a TPU-native audio DSP framework.
+"""dsp_audio_project_tpu — an accelerator audio DSP framework in JAX.
 
-A from-scratch JAX/XLA/Pallas re-architecture of the capabilities of the
-reference project ``Renatovela-ctrl/dsp-audio-project`` (an audio pipeline of
-L/M sample-rate conversion, a 6-band peaking-EQ biquad cascade, and windowed
-FFT spectrum analysis), built TPU-first:
+A from-scratch JAX/XLA re-architecture of the capabilities of the reference
+project ``Renatovela-ctrl/dsp-audio-project`` (an audio pipeline of L/M
+sample-rate conversion, a 6-band peaking-EQ biquad cascade, and windowed FFT
+spectrum analysis), built for an accelerator (an NVIDIA H100):
 
-* the full-rate zero-stuffed FIR becomes a polyphase frame matmul on the MXU,
+* the full-rate zero-stuffed FIR becomes a polyphase frame matmul,
 * the sequential IIR cascade becomes a block-parallel state-space recurrence,
-* the recursive Python FFT becomes batched vectorized butterflies / rFFT,
+* the recursive Python FFT becomes a batched rFFT,
 * multichannel + long-form audio shard over a (channel, block) device mesh
-  with overlap-save halos and biquad state carries over ICI collectives.
+  with overlap-save halos and biquad state carries as collectives.
 
 Public entry points:
     load_signal / export_wav          host-side audio I/O

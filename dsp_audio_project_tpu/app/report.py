@@ -111,7 +111,7 @@ def render_report(
     fs: int,
     config: PipelineConfig = PipelineConfig(),
     *,
-    title: str = "TPU DSP analysis",
+    title: str = "DSP analysis",
     normalized_omega: bool = False,
     stem_time_s: Optional[float] = None,
     include_audio: bool = True,

@@ -1,7 +1,7 @@
 """Minimal dependency-free SVG charting.
 
 The reference renders with plotly + matplotlib (app.py:3-4) — neither is a
-TPU-image dependency, so the framework carries a small SVG backend
+dependency of this framework, so it carries a small SVG backend
 sufficient for its four analysis views: overlaid line plots (linear/log x),
 dashed vertical markers, and stem plots.
 

@@ -2,12 +2,12 @@
 
 The reference's only user surface is ``streamlit run app.py`` (A1-A9,
 /root/reference/app.py).  This module provides the same interactive surface
-on top of the TPU pipeline: source selection, the optional 15 s center
+on top of the accelerator pipeline: source selection, the optional 15 s center
 analysis window, L/M inputs bounded [1, 8], six EQ sliders in [-15, 15] dB,
 both analysis modes (spectral/temporal and discrete-stem), playback with
 position persistence, and WAV download.
 
-Streamlit is not part of the TPU image; the module import-guards it and the
+Streamlit is not a dependency of the framework; the module import-guards it and the
 CLI's ``--report`` path (app/report.py) provides the same views offline.
 
 Run with:  streamlit run -m dsp_audio_project_tpu.app.webapp  (or
@@ -122,7 +122,7 @@ def main() -> None:  # pragma: no cover - UI glue, needs streamlit
             "offline HTML analysis views"
         )
 
-    st.set_page_config(page_title="TPU DSP Lab", layout="wide", page_icon="🎛️")
+    st.set_page_config(page_title="DSP Lab", layout="wide", page_icon="🎛️")
     st.markdown(
         "<style>.stAlert{display:none;}.block-container{padding-top:1.5rem;}"
         ".dsp-monitor{background-color:#1e1e1e;color:#00ff00;padding:10px 15px;"
@@ -130,7 +130,7 @@ def main() -> None:  # pragma: no cover - UI glue, needs streamlit
         "border:1px solid #333;margin-bottom:15px;}</style>",
         unsafe_allow_html=True,
     )
-    st.title("🎛️ Discrete-time audio processing on TPU")
+    st.title("🎛️ Discrete-time audio processing")
 
     if "signal" not in st.session_state:
         st.session_state.signal = None

@@ -46,7 +46,7 @@ def _parse_gain(text: str):
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="dsp_audio_project_tpu",
-        description="TPU audio pipeline: sample-rate conversion + 6-band EQ",
+        description="Audio pipeline: sample-rate conversion + 6-band EQ",
     )
     p.add_argument(
         "input",
@@ -273,6 +273,9 @@ def main(argv=None) -> int:
         src=SRCConfig(L=args.expand, M=args.decimate),
         eq=EQConfig.from_gains(dict(args.gain)),
     )
+    from .utils.compcache import enable as enable_compile_cache
+
+    enable_compile_cache()
     if args.stream_chunk:
         return _run_streaming(args, cfg, x, fs)
     if args.mesh:
@@ -300,9 +303,12 @@ def main(argv=None) -> int:
             return 2
         mesh = build_mesh(MeshConfig(channel_devices=mc, block_devices=mb))
         x2 = np.atleast_2d(np.asarray(x))
-        z, y, fs_out, _ = run_sharded(x2, fs, cfg, mesh)
+        # y is formed only when the spectra need it (else the cat route).
+        z, y, fs_out, _ = run_sharded(x2, fs, cfg, mesh,
+                                      need_y=bool(args.spectra))
         if x.ndim == 1:
-            z, y = z[0], y[0]
+            z = z[0]
+            y = None if y is None else y[0]
         spectra = None
         if args.spectra:
             scfg = cfg.spectrum

@@ -1,4 +1,4 @@
-"""Static configuration for the TPU audio-DSP pipeline.
+"""Static configuration for the audio-DSP pipeline.
 
 The reference (``/root/reference``) hardcodes every knob inside UI widgets
 (``app.py:149-159``) and the DSP core (``modules/dsp_core.py:158,225-228``).
@@ -157,41 +157,23 @@ class MeshConfig:
 
 @dataclasses.dataclass(frozen=True)
 class KernelConfig:
-    """Kernel-path selection and tiling knobs.
+    """Numerics and tiling knobs of the device ops.
 
-    Routing ('auto', the default) selects the fastest MEASURED path at
-    every level (numbers: kernels/experiments/__init__.py, STATUS.md):
+    Which path runs is not configured here: routing.choose_route decides
+    from the plan and the configuration alone.
 
-    * ``AudioPipeline.__call__`` on TPU routes to the fused frame-major
-      path — the class-major FIR Pallas kernel (kernels/fir_class.py,
-      86 us/signal; shear kernel fallback for stride < 8) feeding the
-      scan-free XLA EQ at unroll = P.  This is the production chain.
-    * Inside the flat forward, 'auto' resolves to 'jnp' for both ops:
-      the fused XLA SRC/EQ beat the standalone experimental Pallas
-      kernels (they pay tile-staging/second-read taxes).
-    * 'pallas' forces the standalone experimental kernels
-      (kernels/experiments/) — research baselines, all oracle-gated;
-      'jnp' forces pure-XLA ops everywhere.
+    ``iir_block`` / ``iir_unroll`` set the flat route's EQ block geometry
+    (the frame-major routes use one block of FRAME_GRANULE frames at
+    unroll = P).  ``eq_fast`` / ``src_fast`` run the EQ's FIR/injection and
+    state-solve matmuls / the frame-major routes' SRC matmul as bf16x3
+    (utils.precision.FAST) instead of full float32; the block-carry and
+    readout paths and the flat route's SRC stay full precision.
     """
 
-    fir_path: str = "auto"           # 'auto' | 'pallas' | 'jnp'
-    iir_path: str = "auto"
-    # (block, unroll) sweet spot from the device-profile sweep (scan-free
-    # Toeplitz recurrence, batch-8: 221 us/60s-signal at 8192/128).
-    # Streaming uses its own smaller default (ops/eq.equalize_stream).
     iir_block: int = 8192            # block length for the IIR block recurrence
     iir_unroll: int = 128            # samples per matmul group within a block
-    fir_frame_tile: int = 512        # frame rows per MXU tile in the FIR kernel
-    # bf16x3 output-FIR einsum in the EQ (~100 dB vs oracle instead of 130+)
-    # for half the EQ MXU time; the state/carry path stays full precision.
     eq_fast: bool = False
-    # bf16x3 polyphase matmul in the shear SRC kernel (same trade).
     src_fast: bool = False
-    interpret: bool = False          # run Pallas kernels in interpreter mode
-
-    def resolve(self, path: str) -> str:
-        p = getattr(self, f"{path}_path")
-        return "jnp" if p == "auto" else p
 
 
 @dataclasses.dataclass(frozen=True)

@@ -6,15 +6,15 @@ The coefficient recipe matches the reference's bilinear-transform peaking EQ
 1-a/A], normalized to a0 = 1.
 
 The reference runs each biquad through ``scipy.signal.lfilter`` — a strictly
-sequential direct-form-II-transposed recurrence (dsp_core.py:205-214).  On TPU
+sequential direct-form-II-transposed recurrence (dsp_core.py:205-214).  Here
 the whole 6-band cascade is restructured here as a single order-2*n_bands
 state-space system:
 
     s[n] = A s[n-1] + B x[n]        y[n] = C s[n-1] + D x[n]
 
 (the C-on-previous-state convention falls straight out of DF2T and composes
-cleanly).  ``block_operators`` then precomputes everything the TPU block-
-parallel recurrence needs: the in-block correction rows C A^j and the
+cleanly).  ``block_operators`` then precomputes everything the device's
+block-parallel recurrence needs: the in-block correction rows C A^j and the
 block-to-block transition A^block.  All of it is float64 on host; the device
 only ever sees float32 constants.
 """
@@ -132,9 +132,9 @@ class BlockOperators:
         contribution to the end state: s_end = A^L sigma + s_end_zeroinit.
 
     Group (unrolled) operators — U consecutive samples advance in ONE set of
-    small matmuls instead of U scan steps (sequential-step overhead on TPU is
-    ~microseconds per step, so shrinking step count B -> B/U is the single
-    biggest IIR latency lever):
+    small matmuls instead of U scan steps (each sequential step pays a fixed
+    per-step cost on an accelerator, so shrinking step count B -> B/U is the
+    single biggest IIR latency lever):
       * ``unroll``  U  (divides ``block``).
       * ``group_A`` (d, d):  A^U.
       * ``group_in`` (U, d): row v is (A^{U-1-v} B)^T — state injection.
@@ -160,8 +160,8 @@ class BlockOperators:
     # (G*d, G*d) with G = block//unroll: block-Toeplitz map from the G group
     # injections inj_v to the states [s_1..s_G] — block (v, r) is
     # (A^U)^{r-v} for v <= r, zero above.  Lets the within-block state
-    # evolution run as ONE matmul instead of a G-step lax.scan (the scan's
-    # per-step while-loop overhead dominated the whole EQ on TPU).
+    # evolution run as ONE matmul instead of a G-step lax.scan (whose
+    # per-step while-loop overhead would dominate the EQ).
     group_toeplitz: np.ndarray
     # (G, d, d): A^{g*U} for g = 0..G-1 — maps a block's true initial state
     # onto each group's entry state (s_true[g] = s_in[g] + A^{gU} sigma), so

@@ -1,8 +1,8 @@
 """Pure-numpy RIFF/WAVE codec.
 
 The reference decodes via ``soundfile`` (libsndfile, dsp_core.py:20) and
-encodes via ``scipy.io.wavfile.write`` (app.py:354).  Neither is a TPU
-dependency, so the framework carries its own small codec:
+encodes via ``scipy.io.wavfile.write`` (app.py:354).  Neither is a
+dependency of this framework, so the framework carries its own small codec:
 
 * ``read_wav``  — PCM 8/16/24/32-bit and IEEE float32/64, any channel count,
   returned as float64 in [-1, 1) with libsndfile's scaling conventions

@@ -15,10 +15,28 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from jax.experimental.layout import Format, Layout
+
 from ..config import PipelineConfig
-from ..ops.eq import equalize
-from ..ops.spectrum import magnitude_spectrum
-from ..ops.src import resample
+from ..ops.eq import (
+    eq_cat_weights, equalize, equalize_frames, equalize_frames_cat,
+    make_block_operators,
+)
+from ..ops.eq_dynamic import (
+    build_dynamic_operators, build_dynamic_operators_host, dyn_cat_weights,
+    equalize_dynamic_cat_ops, equalize_dynamic_frames,
+    equalize_dynamic_frames_ops,
+)
+from ..ops.spectrum import (
+    magnitude_spectrum, spectra_mag_stacked, spectrum_rows_needed,
+    spectrum_window, spectrum_window_frames, spectrum_window_rows,
+)
+from ..ops.src import (
+    FRAME_GRANULE, fold_operator, frame_count, make_plan, resample,
+    resample_frames, resample_frames_cat, resample_rows,
+)
+from ..routing import cat_supported, choose_route, frames_supported
+from ..utils.profiling import trace_stage
 
 
 @dataclasses.dataclass(frozen=True)
@@ -26,7 +44,8 @@ class PipelineOutputs:
     """Device results of one pipeline invocation."""
 
     output: jnp.ndarray          # z[n] at the output rate
-    resampled: jnp.ndarray       # y[n], the SRC intermediate
+    resampled: Optional[jnp.ndarray]  # y[n], the SRC intermediate (None
+                                      # where the cat route never formed it)
     fs_out: int
     spectra: Optional[Dict[str, Tuple[np.ndarray, jnp.ndarray]]] = None
 
@@ -42,81 +61,39 @@ class AudioPipeline:
 
     def __init__(self, config: PipelineConfig = PipelineConfig()):
         self.config = config
-        # fs is static: it feeds filter design and rate arithmetic on host.
-        self._jitted = jax.jit(self._forward, static_argnums=(1,))
-        self._jitted_frames = jax.jit(self._forward_frames, static_argnums=(1,))
-        self._jitted_frames_flat = jax.jit(
-            self._forward_frames_flat, static_argnums=(1,)
-        )
-        self._jitted_frames_dynamic = None  # built lazily, cached
+        # One jax.jit wrapper per forward, built on first use; fs is static
+        # everywhere (it feeds filter design and rate arithmetic on host).
+        self._jit_cache: Dict[str, object] = {}
 
     def _forward(self, x: jnp.ndarray, fs: int) -> Tuple[jnp.ndarray, jnp.ndarray]:
-        from ..utils.profiling import trace_stage
-
+        """Flat route: (x, fs) -> (z, y); its SRC runs at full f32."""
         cfg = self.config
         kc = cfg.kernels
         with trace_stage("src"):
-            y, fs_out = self._run_src(x, fs)
-        with trace_stage("eq"):
-            z = self._run_eq(y, fs_out)
-        return z, y
-
-    def _run_src(self, x: jnp.ndarray, fs: int):
-        cfg = self.config
-        kc = cfg.kernels
-        if cfg.src.bypass or kc.resolve("fir") == "jnp":
             y, fs_out = resample(x, fs, cfg.src)
-        else:
-            from ..kernels.experiments.fir import polyphase_fir
-            from ..ops.src import make_plan
-
-            plan = make_plan(cfg.src.L, cfg.src.M, cfg.src.taps_rule_factor)
-            y = polyphase_fir(
-                x.astype(jnp.float32),
-                plan,
-                cfg.src.output_length(x.shape[-1]),
-                frame_tile=kc.fir_frame_tile,
-                interpret=kc.interpret,
-            )
-            fs_out = cfg.src.output_rate(fs)
-        return y, fs_out
-
-    def _run_eq(self, y: jnp.ndarray, fs_out: int) -> jnp.ndarray:
-        cfg = self.config
-        kc = cfg.kernels
-        if kc.resolve("iir") == "jnp":
-            return equalize(y, fs_out, cfg.eq, block=kc.iir_block,
-                            unroll=kc.iir_unroll, fast=kc.eq_fast)
-        from ..ops.eq import equalize_pallas
-
-        return equalize_pallas(
-            y, fs_out, cfg.eq, block=kc.iir_block,
-            unroll=kc.iir_unroll, interpret=kc.interpret,
-        )
+        with trace_stage("eq"):
+            z = equalize(y, fs_out, cfg.eq, block=kc.iir_block,
+                         unroll=kc.iir_unroll, fast=kc.eq_fast)
+        return z, y
 
     def output_rate(self, fs: int) -> int:
         return self.config.src.output_rate(fs)
+
+    def route(self, n: int, fs: int, need_y: bool = False) -> str:
+        """The route (routing.choose_route) for ``n``-sample inputs."""
+        return choose_route(self.config, n, fs, need_y=need_y)
 
     def __call__(
         self, x, fs: int, *, with_spectra: bool = False
     ) -> PipelineOutputs:
         x = jnp.asarray(x, dtype=jnp.float32)
         fs_out = self.output_rate(fs)
-        # Default to the fused frame-major fast path where it applies (TPU
-        # with a compatible plan, kernel paths on 'auto' — an explicit
-        # fir_path/iir_path selection is honored via the flat forward):
-        # same results, no device-side lane retiles.
-        kc = self.config.kernels
-        if (
-            jax.default_backend() == "tpu"
-            and not kc.interpret
-            and kc.fir_path == "auto"
-            and kc.iir_path == "auto"
-            and self.frames_supported(x.shape[-1])
-        ):
-            z, y = self._jitted_frames_flat(x, fs)
+        # The caller gets y, so the cat route (which never forms y) is out.
+        if self.route(x.shape[-1], fs, need_y=True) == "frames":
+            z, y = self._cached_jit("frames_flat", self._forward_frames_flat,
+                                    static_argnums=(1,))(x, fs)
         else:
-            z, y = self._jitted(x, fs)
+            z, y = self.jit_forward()(x, fs)
         spectra = None
         if with_spectra:
             scfg = self.config.spectrum
@@ -128,55 +105,46 @@ class AudioPipeline:
         return PipelineOutputs(output=z, resampled=y, fs_out=fs_out, spectra=spectra)
 
     def jit_forward(self):
-        """The raw jitted (x, fs) -> (z, y) function (for benchmarking)."""
-        return self._jitted
+        """The raw jitted flat-route (x, fs) -> (z, y) function."""
+        return self._cached_jit("flat", self._forward, static_argnums=(1,))
 
-    # ---- fused frame-major fast path -----------------------------------
+    # ---- frame-major route ----------------------------------------------
     #
-    # The shear FIR kernel (kernels/fir_shear.py) emits (..., F, P) frames
-    # and equalize_frames consumes them at unroll = P — no 128-misaligned
-    # retile anywhere on the device.  The flat signal is
-    # frames.reshape(..., F*P)[..., :n_out], a zero-cost view once fetched
-    # to host.  XLA's generic lane-retile while-loops were ~half the whole
-    # chain's device time, so this is the serving-path default.
+    # ops/src.resample_frames emits (..., F, P) frames (F a multiple of
+    # FRAME_GRANULE) and equalize_frames consumes them at unroll = P.  The
+    # flat signal is frames.reshape(..., F*P)[..., :n_out], a free view
+    # once fetched to host.
+
+    def _plan(self):
+        src = self.config.src
+        return make_plan(src.L, src.M, src.taps_rule_factor)
 
     def frames_supported(self, n: int) -> bool:
-        """True when the fused frame-major path covers this input."""
-        cfg = self.config
-        if cfg.src.bypass:
-            return False
-        from ..ops.src import make_plan
+        """True when the frame-major route covers this input."""
+        return frames_supported(self.config, n)
 
-        plan = make_plan(cfg.src.L, cfg.src.M, cfg.src.taps_rule_factor)
-        return plan.s >= 8 and n * cfg.src.L >= cfg.src.num_taps
+    def _src_frames(self, x: jnp.ndarray) -> jnp.ndarray:
+        cfg = self.config
+        n_out = cfg.src.output_length(x.shape[-1])
+        with trace_stage("src"):
+            return resample_frames(x, self._plan(), n_out, pad_frames=True,
+                                   fast=cfg.kernels.src_fast)
 
     def _forward_frames(self, x: jnp.ndarray, fs: int):
         """(x, fs) -> (z_frames, y_frames): frame-major SRC->EQ.
 
         z/y flat = frames.reshape(..., -1)[..., :output_length(n)].
         """
-        from ..kernels import fir_frames
-        from ..ops.eq import equalize_frames
-        from ..ops.src import make_plan
-        from ..utils.profiling import trace_stage
-
         cfg = self.config
-        plan = make_plan(cfg.src.L, cfg.src.M, cfg.src.taps_rule_factor)
-        n_out = cfg.src.output_length(x.shape[-1])
         fs_out = cfg.src.output_rate(fs)
-        with trace_stage("src_frames"):
-            y_frames = fir_frames(
-                x.astype(jnp.float32), plan, n_out, pad_frames=True,
-                interpret=cfg.kernels.interpret,
-                **({"precision": "fast"} if cfg.kernels.src_fast else {}),
-            )
-        with trace_stage("eq_frames"):
+        y_frames = self._src_frames(x)
+        with trace_stage("eq"):
             z_frames = equalize_frames(y_frames, fs_out, cfg.eq,
                                        fast=cfg.kernels.eq_fast)
         return z_frames, y_frames
 
     def _forward_frames_flat(self, x: jnp.ndarray, fs: int):
-        """Fused path with the flat crop inside the jit boundary."""
+        """Frame-major route with the flat crop inside the jit boundary."""
         zf, yf = self._forward_frames(x, fs)
         n_out = self.config.src.output_length(x.shape[-1])
         z = zf.reshape(zf.shape[:-2] + (-1,))[..., :n_out]
@@ -184,343 +152,196 @@ class AudioPipeline:
         return z, y
 
     def jit_forward_frames(self):
-        """Jitted fused (x, fs) -> (z_frames, y_frames); see frames_supported."""
-        return self._jitted_frames
+        """Jitted frame-major (x, fs) -> (z_frames, y_frames); see
+        frames_supported."""
+        return self._cached_jit("frames", self._forward_frames,
+                                static_argnums=(1,))
 
     # ---- full chain: SRC -> EQ -> spectra of x, y, z ---------------------
     #
     # The reference's per-render work is the cascade PLUS a magnitude
     # spectrum of all three signals (app.py:202-205); these forwards fold
-    # the spectra into the same jitted program so the headline benchmark
-    # measures the declared SRC+EQ+FFT chain (BASELINE.json metric).
+    # the spectra into the same jitted program.
 
     def _forward_frames_spectra(self, x: jnp.ndarray, fs: int):
-        """(x, fs) -> (z_frames, y_frames, (mag_x, mag_y, mag_z)).
-
-        The three per-render spectra (app.py:202-205) run as ONE batched
-        rFFT kernel call (spectra_mag_stacked) — three separate 2048-point
-        launches each pay the small-kernel floor."""
-        from ..ops.spectrum import (
-            spectra_mag_stacked, spectrum_window, spectrum_window_frames,
-        )
-
+        """(x, fs) -> (z_frames, y_frames, (mag_x, mag_y, mag_z)); the
+        three spectra run as ONE batched rFFT (spectra_mag_stacked)."""
         zf, yf = self._forward_frames(x, fs)
         cfg = self.config
         n_out = cfg.src.output_length(x.shape[-1])
         scfg = cfg.spectrum
-        mx, my, mz = spectra_mag_stacked([
-            spectrum_window(x, scfg),
-            spectrum_window_frames(yf, n_out, scfg),
-            spectrum_window_frames(zf, n_out, scfg),
-        ])
+        with trace_stage("spectra"):
+            mx, my, mz = spectra_mag_stacked([
+                spectrum_window(x, scfg),
+                spectrum_window_frames(yf, n_out, scfg),
+                spectrum_window_frames(zf, n_out, scfg),
+            ])
         return zf, yf, (mx, my, mz)
 
     def _forward_spectra(self, x: jnp.ndarray, fs: int):
-        """Flat-path full chain: (x, fs) -> (z, y, (mag_x, mag_y, mag_z))."""
-        from ..ops.spectrum import spectra_mag_stacked, spectrum_window
-
+        """Flat-route full chain: (x, fs) -> (z, y, (mag_x, mag_y, mag_z))."""
         z, y = self._forward(x, fs)
         scfg = self.config.spectrum
-        mx, my, mz = spectra_mag_stacked([
-            spectrum_window(x, scfg), spectrum_window(y, scfg),
-            spectrum_window(z, scfg),
-        ])
+        with trace_stage("spectra"):
+            mx, my, mz = spectra_mag_stacked([
+                spectrum_window(x, scfg), spectrum_window(y, scfg),
+                spectrum_window(z, scfg),
+            ])
         return z, y, (mx, my, mz)
 
-    # ---- EQ-fused cat path (round 5) ------------------------------------
+    # ---- EQ-fused cat route ---------------------------------------------
     #
-    # The rect FIR kernel's operator banks are pre-multiplied on host by
-    # the EQ's weight concat [group_fir^T | group_in] (float64 G @ w_cat —
-    # kernels/fir_class._class_banks_cat), so the kernel emits the EQ's
-    # [y0 | inj] per frame directly: same MXU cost (the P -> P+d output
-    # width pads to the same 256 lanes), one fewer full-signal HBM round
-    # trip (the frames tensor never exists).  The EQ keeps only the
-    # group-Toeplitz state solve + readout (ops/eq.equalize_frames_cat).
-    # The y/z analysis rows come out as tiny side tensors (y recomputed
-    # from x with resample_rows, z from slices of the kernel output), so
-    # the full-size z fusion is never sliced.
+    # The EQ's first matmul, frames @ [group_fir^T | group_in], has
+    # frame-independent weights, so it folds into the SRC operator on the
+    # host (float64 G @ w_cat, ops/src.fold_operator): the SRC emits the
+    # EQ's y0 and state injections directly and the frames tensor never
+    # exists.  The EQ keeps only the group-Toeplitz state solve + readout
+    # (ops/eq.equalize_frames_cat).  The y/z analysis rows come out as tiny
+    # side tensors (y recomputed from x with resample_rows, z from row
+    # slices of y0 and the states).
 
     def cat_supported(self, n: int, fs: int) -> bool:
-        """True when the EQ-fused cat path covers this (config, input).
-
-        Needs the rect kernel's geometry, an active EQ at the output rate
-        (the fold happens against its operators), and matching src/eq
-        precision flags (one kernel precision serves both folded stages).
-        """
-        cfg = self.config
-        kc = cfg.kernels
-        if cfg.src.bypass or cfg.eq.bypass:
-            return False
-        if bool(kc.src_fast) != bool(kc.eq_fast):
-            return False
-        from ..kernels.fir_class import rect_supported
-        from ..ops.src import make_plan
-
-        plan = make_plan(cfg.src.L, cfg.src.M, cfg.src.taps_rule_factor)
-        if not (rect_supported(plan) and n * cfg.src.L >= cfg.src.num_taps):
-            return False
-        return bool(cfg.eq.active_bands(cfg.src.output_rate(fs)))
+        """True when the EQ-fused cat route covers this (config, input)."""
+        return cat_supported(self.config, n, fs)
 
     def _cat_pieces(self, x: jnp.ndarray, fs: int):
-        """Shared cat-path front end: ((y0, inj_p), plan, n_out, fs_out)."""
-        from ..kernels.fir_class import polyphase_fir_class_rect_cat
-        from ..ops.eq import eq_cat_weights, make_block_operators
-        from ..ops.src import make_plan
-        from ..utils.profiling import trace_stage
-
+        """Shared cat-route front end: ((y0, inj), plan, n_out, fs_out)."""
         cfg = self.config
         kc = cfg.kernels
-        plan = make_plan(cfg.src.L, cfg.src.M, cfg.src.taps_rule_factor)
+        plan = self._plan()
         n_out = cfg.src.output_length(x.shape[-1])
         fs_out = cfg.src.output_rate(fs)
         bands = cfg.eq.active_bands(fs_out)
         ops = make_block_operators(
-            bands, int(fs_out), cfg.eq.q, 128 * plan.P, plan.P
+            bands, int(fs_out), cfg.eq.q, FRAME_GRANULE * plan.P, plan.P
         )
-        with trace_stage("src_eq_cat"):
-            pair = polyphase_fir_class_rect_cat(
-                x.astype(jnp.float32), plan, n_out, eq_cat_weights(ops),
-                precision=("fast" if kc.src_fast
-                           else jax.lax.Precision.HIGHEST),
-                interpret=kc.interpret,
+        with trace_stage("src"):
+            pair = resample_frames_cat(
+                x, plan, n_out, fold_operator(plan, eq_cat_weights(ops)),
+                pad_frames=True, fast=kc.src_fast and kc.eq_fast,
             )
         return pair, plan, n_out, fs_out
 
     def _forward_cat(self, x: jnp.ndarray, fs: int) -> jnp.ndarray:
-        """(x, fs) -> z_frames through the EQ-fused cat kernel.
+        """(x, fs) -> z_frames through the EQ-fused cat route.
 
         z flat = z_frames.reshape(..., -1)[..., :output_length(n)]; the
-        SRC intermediate y is never materialized (use the frames path when
-        you need it as a tensor).
+        SRC intermediate y is never materialized (use the frames route
+        when you need it as a tensor).
         """
-        from ..ops.eq import equalize_frames_cat
-
         cfg = self.config
-        (y0, inj_p), plan, n_out, fs_out = self._cat_pieces(x, fs)
-        return equalize_frames_cat(
-            y0, inj_p, fs_out, cfg.eq, unroll=plan.P,
-            fast=cfg.kernels.eq_fast, interpret=cfg.kernels.interpret,
-        )
+        (y0, inj), plan, n_out, fs_out = self._cat_pieces(x, fs)
+        with trace_stage("eq"):
+            return equalize_frames_cat(
+                y0, inj, fs_out, cfg.eq, unroll=plan.P,
+                fast=cfg.kernels.eq_fast,
+            )
 
     def _forward_cat_spectra(self, x: jnp.ndarray, fs: int):
         """(x, fs) -> (z_frames, (mag_x, mag_y, mag_z)) — the full-chain
-        headline program on the cat path.  The y spectrum's ~13 frame rows
-        are recomputed from x (ops/src.resample_rows, exact f32 design
-        matmul); the z rows ride out of the EQ as a small side tensor."""
-        from ..ops.eq import equalize_frames_cat
-        from ..ops.spectrum import (
-            spectra_mag_stacked, spectrum_rows_needed, spectrum_window,
-            spectrum_window_rows,
-        )
-        from ..ops.src import resample_rows
-
+        headline program on the cat route.  The y spectrum's ~13 frame
+        rows are recomputed from x (ops/src.resample_rows, full-precision
+        design matmul); the z rows ride out of the EQ as a side tensor."""
         cfg = self.config
         scfg = cfg.spectrum
-        (y0, inj_p), plan, n_out, fs_out = self._cat_pieces(x, fs)
+        (y0, inj), plan, n_out, fs_out = self._cat_pieces(x, fs)
         r0, r1 = spectrum_rows_needed(n_out, plan.P, scfg)
-        z, z_rows = equalize_frames_cat(
-            y0, inj_p, fs_out, cfg.eq, unroll=plan.P,
-            fast=cfg.kernels.eq_fast, rows=(r0, r1),
-            interpret=cfg.kernels.interpret,
-        )
-        y_rows = resample_rows(x.astype(jnp.float32), plan, r0, r1)
-        mx, my, mz = spectra_mag_stacked([
-            spectrum_window(x, scfg),
-            spectrum_window_rows(y_rows, r0, n_out, scfg),
-            spectrum_window_rows(z_rows, r0, n_out, scfg),
-        ])
+        with trace_stage("eq"):
+            z, z_rows = equalize_frames_cat(
+                y0, inj, fs_out, cfg.eq, unroll=plan.P,
+                fast=cfg.kernels.eq_fast, rows=(r0, r1),
+            )
+        with trace_stage("spectra"):
+            y_rows = resample_rows(x.astype(jnp.float32), plan, r0, r1)
+            mx, my, mz = spectra_mag_stacked([
+                spectrum_window(x, scfg),
+                spectrum_window_rows(y_rows, r0, n_out, scfg),
+                spectrum_window_rows(z_rows, r0, n_out, scfg),
+            ])
         return z, (mx, my, mz)
 
-    @staticmethod
-    def _auto_layout_jit(fun, **kw):
-        """jax.jit with AUTO output layouts where the API exists.
-
-        The default output-layout normalization copies a full-size z
-        every call (~45 us/signal measured, round 5) when the caller
-        actually fetches the output; XLA's native layout fetches
-        bit-identically (verified) without it."""
-        try:
-            from jax.experimental.layout import Format, Layout
-
-            return jax.jit(fun, out_shardings=Format(Layout.AUTO), **kw)
-        except Exception:  # pragma: no cover - older jax
-            return jax.jit(fun, **kw)
+    def _cached_jit(self, name: str, fun, **kw):
+        """The jax.jit wrapper of forward ``name``, built on first use."""
+        hit = self._jit_cache.get(name)
+        if hit is None:
+            hit = self._jit_cache[name] = jax.jit(fun, **kw)
+        return hit
 
     def jit_forward_cat(self):
-        """Jitted cat-path (x, fs) -> z_frames; see cat_supported."""
-        if getattr(self, "_jitted_cat", None) is None:
-            self._jitted_cat = self._auto_layout_jit(
-                self._forward_cat, static_argnums=(1,)
-            )
-        return self._jitted_cat
+        """Jitted cat-route (x, fs) -> z_frames; see cat_supported.
+
+        AUTO output layout: the caller fetches z, and XLA's native layout
+        fetches bit-identically without a normalizing copy of z."""
+        return self._cached_jit(
+            "cat", self._forward_cat, static_argnums=(1,),
+            out_shardings=Format(Layout.AUTO),
+        )
 
     def jit_forward_cat_spectra(self):
-        """Jitted cat-path full chain (x, fs) -> (z_frames, (mx, my, mz))."""
-        if getattr(self, "_jitted_cat_spectra", None) is None:
-            self._jitted_cat_spectra = jax.jit(
-                self._forward_cat_spectra, static_argnums=(1,)
-            )
-        return self._jitted_cat_spectra
-
-    # ---- flat 128-lane fast path ----------------------------------------
-    #
-    # The frames layout (..., F, 160) pads 160 -> 256 lanes in every op that
-    # touches it.  The flat path removes the frame structure: the class FIR
-    # kernel emits the flat signal directly (column-rotated banks —
-    # kernels/fir_class.polyphase_fir_class_flat), then the scan-free XLA
-    # EQ runs on the clean 128-lane flat layout.  (A Pallas one-sweep EQ
-    # was built and measured off: Mosaic only relayouts 128-wide chunks
-    # across the sublane/lane boundary, and at any legal layout the dense
-    # group-Toeplitz matmuls batch at most one grid-step's rows — <=25%
-    # MXU row utilization vs the XLA two-sweep's whole-signal batching.
-    # See kernels/experiments/iir_seq.py for the analysis.)
-
-    def flat_supported(self, n: int) -> bool:
-        """True when the flat class-FIR + XLA flat EQ path covers this."""
-        cfg = self.config
-        if cfg.src.bypass:
-            return False
-        from ..kernels.fir_class import class_flat_supported
-        from ..ops.src import make_plan
-
-        plan = make_plan(cfg.src.L, cfg.src.M, cfg.src.taps_rule_factor)
-        return class_flat_supported(plan) and n * cfg.src.L >= cfg.src.num_taps
-
-    def _forward_flat(self, x: jnp.ndarray, fs: int):
-        """(x, fs) -> (z, y): flat class-FIR kernel + XLA flat EQ; true
-        (unpadded) outputs — the kernel-grid pad is cropped in-jit."""
-        from ..kernels.fir_class import polyphase_fir_class_flat
-        from ..ops.src import make_plan
-        from ..utils.profiling import trace_stage
-
-        cfg = self.config
-        kc = cfg.kernels
-        plan = make_plan(cfg.src.L, cfg.src.M, cfg.src.taps_rule_factor)
-        n_out = cfg.src.output_length(x.shape[-1])
-        fs_out = cfg.src.output_rate(fs)
-        with trace_stage("src_flat"):
-            y_pad = polyphase_fir_class_flat(
-                x.astype(jnp.float32), plan, n_out, pad_out=True,
-                precision="fast" if kc.src_fast else jax.lax.Precision.HIGHEST,
-                interpret=kc.interpret,
-            )
-        y = y_pad[..., :n_out]
-        with trace_stage("eq_flat"):
-            z = self._run_eq(y, int(fs_out))
-        return z, y
-
-    def _forward_flat_spectra(self, x: jnp.ndarray, fs: int):
-        from ..ops.spectrum import spectra_mag_stacked, spectrum_window
-
-        z, y = self._forward_flat(x, fs)
-        scfg = self.config.spectrum
-        mx, my, mz = spectra_mag_stacked([
-            spectrum_window(x, scfg), spectrum_window(y, scfg),
-            spectrum_window(z, scfg),
-        ])
-        return z, y, (mx, my, mz)
-
-    def jit_forward_flat(self):
-        """Jitted flat-layout (x, fs) -> (z, y); see flat_supported."""
-        if getattr(self, "_jitted_flat", None) is None:
-            self._jitted_flat = jax.jit(self._forward_flat,
-                                        static_argnums=(1,))
-        return self._jitted_flat
-
-    def jit_forward_flat_spectra(self):
-        """Jitted flat full chain (x, fs) -> (z, y, (mx, my, mz))."""
-        if getattr(self, "_jitted_flat_spectra", None) is None:
-            self._jitted_flat_spectra = jax.jit(
-                self._forward_flat_spectra, static_argnums=(1,)
-            )
-        return self._jitted_flat_spectra
+        """Jitted cat-route full chain (x, fs) -> (z_frames, (mx, my, mz))."""
+        return self._cached_jit("cat_spectra", self._forward_cat_spectra,
+                                static_argnums=(1,))
 
     def jit_forward_frames_spectra(self):
-        """Jitted fused full chain (x, fs) -> (z_f, y_f, (mx, my, mz)).
+        """Jitted frame-major full chain (x, fs) -> (z_f, y_f, (mx, my, mz)).
 
         Frequency axes are host constants: ops.spectrum.spectrum_freqs(n, fs)
         for x and spectrum_freqs(output_length(n), output_rate(fs)) for y/z.
         """
-        if getattr(self, "_jitted_frames_spectra", None) is None:
-            self._jitted_frames_spectra = jax.jit(
-                self._forward_frames_spectra, static_argnums=(1,)
-            )
-        return self._jitted_frames_spectra
+        return self._cached_jit("frames_spectra",
+                                self._forward_frames_spectra,
+                                static_argnums=(1,))
 
     def jit_forward_spectra(self):
         """Jitted flat full chain (x, fs) -> (z, y, (mx, my, mz))."""
-        if getattr(self, "_jitted_spectra", None) is None:
-            self._jitted_spectra = jax.jit(
-                self._forward_spectra, static_argnums=(1,)
-            )
-        return self._jitted_spectra
+        return self._cached_jit("spectra", self._forward_spectra,
+                                static_argnums=(1,))
+
+    # ---- dynamic gains: gains as traced inputs ---------------------------
 
     def jit_forward_frames_dynamic(self):
-        """Jitted fused (x, gains_db, fs) -> (z_frames, y_frames).
+        """Jitted frame-major (x, gains_db, fs) -> (z_frames, y_frames).
 
         Traced gains: ONE compile serves every gain vector (per-request EQ
-        at zero compile cost) on the same retile-free frame-major path.
-        Band geometry/config comes from self.config.eq; gains_db overrides
-        the gains, ordered like EQConfig.band_centers.  The jit wrapper is
-        cached on the pipeline, so calling this per request shares one
-        compile cache.
+        at zero compile cost).  Band geometry/config comes from
+        self.config.eq; gains_db overrides the gains, ordered like
+        EQConfig.band_centers.  The jit wrapper is cached on the pipeline,
+        so calling this per request shares one compile cache.
         """
-        if self._jitted_frames_dynamic is not None:
-            return self._jitted_frames_dynamic
-
-        from ..kernels import fir_frames
-        from ..ops.eq_dynamic import equalize_dynamic_frames
-        from ..ops.src import make_plan
-
         cfg = self.config
 
         def forward(x, gains_db, fs):
-            plan = make_plan(cfg.src.L, cfg.src.M, cfg.src.taps_rule_factor)
-            n_out = cfg.src.output_length(x.shape[-1])
-            fs_out = cfg.src.output_rate(fs)
-            y_frames = fir_frames(
-                x.astype(jnp.float32), plan, n_out, pad_frames=True,
-                interpret=cfg.kernels.interpret,
-                **({"precision": "fast"} if cfg.kernels.src_fast else {}),
-            )
+            y_frames = self._src_frames(x)
             z_frames = equalize_dynamic_frames(
-                y_frames, gains_db, fs_out, cfg.eq,
+                y_frames, gains_db, cfg.src.output_rate(fs), cfg.eq,
                 fast=cfg.kernels.eq_fast,
             )
             return z_frames, y_frames
 
-        self._jitted_frames_dynamic = jax.jit(forward, static_argnums=(2,))
-        return self._jitted_frames_dynamic
+        return self._cached_jit("frames_dynamic", forward,
+                                static_argnums=(2,))
 
     # ---- serving split: build operators on gain change, apply per batch --
     #
-    # The in-graph operator construction inside jit_forward_frames_dynamic
-    # costs ~0.2 ms/batch regardless of whether gains changed.  The split
-    # amortizes it: dynamic_eq_operators runs the (jitted, traced-gains)
-    # builder when a request carries new gains; jit_forward_frames_dynamic_ops
-    # is the per-batch path, structurally identical to the static fused path.
+    # In-graph operator construction inside jit_forward_frames_dynamic
+    # runs on every batch whether or not gains changed.  The split
+    # amortizes it: dynamic_eq_operators builds the operators when a
+    # request carries new gains; jit_forward_frames_dynamic_ops is the
+    # per-batch path, structurally identical to the static frame route.
 
     def dynamic_eq_geometry(self, fs: int, n: int,
-                            groups_per_block: int = 128):
+                            groups_per_block: int = FRAME_GRANULE):
         """(unroll, groups_per_block, num_blocks) the dynamic builders use
         for ``n``-sample inputs — exposed so harnesses can call the builder
         phases (host tables / upload / expand) with the exact serving
         geometry."""
-        from ..kernels import fir_frames
-        from ..ops.src import make_plan
-
-        cfg = self.config
-        plan = make_plan(cfg.src.L, cfg.src.M, cfg.src.taps_rule_factor)
-        n_out = cfg.src.output_length(n)
-        shape = jax.eval_shape(
-            lambda x: fir_frames(x, plan, n_out, pad_frames=True),
-            jax.ShapeDtypeStruct((n,), jnp.float32),
-        ).shape
-        K = -(-shape[-2] // groups_per_block)
-        return plan.P, groups_per_block, K
+        plan = self._plan()
+        F = frame_count(plan, self.config.src.output_length(n),
+                        pad_frames=True)
+        return plan.P, groups_per_block, -(-F // groups_per_block)
 
     def dynamic_eq_operators(self, gains_db, fs: int, n: int,
-                             groups_per_block: int = 128,
+                             groups_per_block: int = FRAME_GRANULE,
                              builder: str = "auto"):
         """Build dynamic-gains EQ operators for ``n``-sample inputs.
 
@@ -533,116 +354,74 @@ class AudioPipeline:
         compile serves every gain vector); 'auto' picks 'host' for concrete
         gains and 'traced' under a trace.
         """
-        from ..ops.eq_dynamic import (
-            build_dynamic_operators, build_dynamic_operators_host,
-        )
-        from ..ops.src import make_plan
-
         cfg = self.config
-        plan = make_plan(cfg.src.L, cfg.src.M, cfg.src.taps_rule_factor)
         fs_out = cfg.src.output_rate(fs)
-        # Frame count including the kernel's pad_frames rounding, without
-        # running the kernel (dynamic_eq_geometry wraps the eval_shape):
-        _, _, K = self.dynamic_eq_geometry(fs, n, groups_per_block)
+        U, G, K = self.dynamic_eq_geometry(fs, n, groups_per_block)
         if builder == "auto":
             builder = (
                 "traced" if isinstance(gains_db, jax.core.Tracer) else "host"
             )
         if builder == "host":
             return build_dynamic_operators_host(
-                gains_db, fs_out, cfg.eq, unroll=plan.P,
-                groups_per_block=groups_per_block, num_blocks=K,
+                gains_db, fs_out, cfg.eq, unroll=U,
+                groups_per_block=G, num_blocks=K,
             )
         return build_dynamic_operators(
             jnp.asarray(gains_db, jnp.float32), fs_out, cfg.eq,
-            unroll=plan.P, groups_per_block=groups_per_block, num_blocks=K,
+            unroll=U, groups_per_block=G, num_blocks=K,
         )
 
     def dynamic_cat_tables(self, dyn_ops):
-        """Traced cat tables (FIR banks + padded Toeplitz) from prebuilt
-        DynOperators (per gain change; ~35 MB device materialization, zero
-        upload — see ops/eq_dynamic.build_cat_tables_dyn).  Pass the
-        result to jit_forward_cat_dynamic_ops() alongside the same
-        dyn_ops."""
-        from ..ops.eq_dynamic import build_cat_tables_dyn
-        from ..ops.src import make_plan
-
-        cfg = self.config
-        plan = make_plan(cfg.src.L, cfg.src.M, cfg.src.taps_rule_factor)
-        if getattr(self, "_jitted_cat_tables", None) is None:
-            self._jitted_cat_tables = jax.jit(
-                lambda o: build_cat_tables_dyn(
-                    plan, o, fast=bool(cfg.kernels.src_fast)
-                )
-            )
-        return self._jitted_cat_tables(dyn_ops)
+        """The cat route's folded SRC operator G @ [fir^T | group_in]
+        (W, P+d), computed on device from prebuilt DynOperators — once per
+        gain change, a few hundred KB.  Pass it to
+        jit_forward_cat_dynamic_ops() alongside the same dyn_ops."""
+        plan = self._plan()
+        fold = self._cached_jit(
+            "cat_fold", lambda o: fold_operator(plan, dyn_cat_weights(o))
+        )
+        return fold(dyn_ops)
 
     def jit_forward_cat_dynamic_ops(self):
-        """Jitted cat (x, dyn_ops, tables, fs) -> z_frames: dynamic gains
-        at the static cat rate.
+        """Jitted cat (x, dyn_ops, fold, fs) -> z_frames: dynamic gains on
+        the cat route.
 
-        The round-5 dynamic serving path: per gain change, rebuild the
-        fused banks + padded Toeplitz on device (dynamic_cat_tables) from
-        the same DynOperators the EQ finish consumes; per batch, the chain
-        is structurally identical to the static cat path (one kernel,
-        packed Toeplitz solve, finish fusion).  Requires cat_supported
-        geometry.
+        Per gain change, fold the operator on device (dynamic_cat_tables)
+        from the same DynOperators the EQ finish consumes; per batch, the
+        chain is structurally identical to the static cat route.  Requires
+        cat_supported geometry.
         """
-        if getattr(self, "_jitted_cat_dynamic_ops", None) is not None:
-            return self._jitted_cat_dynamic_ops
-
-        from ..kernels.fir_class import polyphase_fir_class_rect_cat
-        from ..ops.eq_dynamic import equalize_dynamic_cat_ops
-        from ..ops.src import make_plan
-
         cfg = self.config
+        kc = cfg.kernels
 
-        def forward(x, dops, tables, fs):
-            plan = make_plan(cfg.src.L, cfg.src.M, cfg.src.taps_rule_factor)
+        def forward(x, dops, fold, fs):
             n_out = cfg.src.output_length(x.shape[-1])
-            y0, inj_p = polyphase_fir_class_rect_cat(
-                x.astype(jnp.float32), plan, n_out, None,
-                banks=tables.banks,
-                precision=("fast" if cfg.kernels.src_fast
-                           else jax.lax.Precision.HIGHEST),
-                interpret=cfg.kernels.interpret,
-            )
-            return equalize_dynamic_cat_ops(
-                y0, inj_p, dops, fast=cfg.kernels.eq_fast,
-                toe_padded=tables.toe_pad,
-            )
+            with trace_stage("src"):
+                y0, inj = resample_frames_cat(
+                    x, self._plan(), n_out, fold, pad_frames=True,
+                    fast=kc.src_fast and kc.eq_fast,
+                )
+            with trace_stage("eq"):
+                return equalize_dynamic_cat_ops(y0, inj, dops,
+                                                fast=kc.eq_fast)
 
-        self._jitted_cat_dynamic_ops = jax.jit(forward, static_argnums=(3,))
-        return self._jitted_cat_dynamic_ops
+        return self._cached_jit("cat_dynamic_ops", forward,
+                                static_argnums=(3,))
 
     def jit_forward_frames_dynamic_ops(self):
-        """Jitted fused (x, ops, fs) -> (z_frames, y_frames), prebuilt EQ ops.
-
-        The per-batch serving path: SRC through the production FIR kernel,
-        EQ through the prebuilt traced-gains operators — no in-graph
-        operator construction, so per-batch cost matches the static path.
+        """Jitted frame-major (x, ops, fs) -> (z_frames, y_frames) with
+        prebuilt EQ operators — no in-graph operator construction, so the
+        per-batch cost matches the static frame route.
         """
-        if getattr(self, "_jitted_frames_dynamic_ops", None) is not None:
-            return self._jitted_frames_dynamic_ops
-
-        from ..kernels import fir_frames
-        from ..ops.eq_dynamic import equalize_dynamic_frames_ops
-        from ..ops.src import make_plan
-
         cfg = self.config
 
         def forward(x, ops, fs):
-            plan = make_plan(cfg.src.L, cfg.src.M, cfg.src.taps_rule_factor)
-            n_out = cfg.src.output_length(x.shape[-1])
-            y_frames = fir_frames(
-                x.astype(jnp.float32), plan, n_out, pad_frames=True,
-                interpret=cfg.kernels.interpret,
-                **({"precision": "fast"} if cfg.kernels.src_fast else {}),
-            )
-            z_frames = equalize_dynamic_frames_ops(
-                y_frames, ops, fast=cfg.kernels.eq_fast,
-            )
+            y_frames = self._src_frames(x)
+            with trace_stage("eq"):
+                z_frames = equalize_dynamic_frames_ops(
+                    y_frames, ops, fast=cfg.kernels.eq_fast,
+                )
             return z_frames, y_frames
 
-        self._jitted_frames_dynamic_ops = jax.jit(forward, static_argnums=(2,))
-        return self._jitted_frames_dynamic_ops
+        return self._cached_jit("frames_dynamic_ops", forward,
+                                static_argnums=(2,))

@@ -2,8 +2,8 @@
 
 The reference applies each active band through ``scipy.signal.lfilter`` — a
 strictly sequential per-sample recurrence — six times in series
-(dsp_core.py:216-254).  A sample-sequential loop is the single worst program
-shape for a TPU, so the cascade is restructured:
+(dsp_core.py:216-254).  A sample-sequential loop is the worst program shape
+for a data-parallel accelerator, so the cascade is restructured:
 
 1.  **Design time (host, float64).**  The active bands (after the reference's
     bypass/Nyquist-clamp rules, encoded in ``EQConfig.active_bands``) are
@@ -13,8 +13,8 @@ shape for a TPU, so the cascade is restructured:
 
 2.  **Block parallelism (device).**  The signal is cut into K blocks of
     ``block`` samples.  Every block runs the recurrence from a ZERO initial
-    state simultaneously — vectorized across the K lanes, the VPU's natural
-    axis — producing provisional outputs y0 and per-block end states e_k.
+    state simultaneously — vectorized across the K blocks — producing
+    provisional outputs y0 and per-block end states e_k.
 
 3.  **Carry fix-up.**  True block-initial states obey the *block-level*
     recurrence sigma_{k+1} = A^block sigma_k + e_k, solved with a log-depth
@@ -24,7 +24,7 @@ shape for a TPU, so the cascade is restructured:
     "hard parts" #1).
 
 4.  **Correction.**  y[k, j] += (C A^j) sigma_k — one (K,d) x (d,block)
-    matmul on the MXU, using host-precomputed correction rows.
+    matmul, using host-precomputed correction rows.
 
 The result equals the sequential recurrence to float32 rounding (no
 associative-scan-over-samples cancellation), and every stage is a large,
@@ -42,7 +42,9 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..config import EQConfig
-from ..utils.precision import einsum_f32, matmul_f32, matvec_f32, vecmat_f32
+from ..utils.precision import (
+    einsum_f32, einsum_prec, matmul_f32, matvec_f32, vecmat_f32,
+)
 from ..design.biquad import (
     schur_form,
     BlockOperators,
@@ -63,69 +65,67 @@ def make_block_operators(
     return block_operators(ss, block, unroll)
 
 
-def _block_recurrence(
-    xb: jnp.ndarray, ops: BlockOperators, fast: bool = False
-) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Zero-init recurrence on (..., K, block) blocks — scan-free.
-
-    Returns (y0, end_states): provisional outputs (..., K, block) and the
-    per-block final states (..., K, d).
-
-    Everything is a large static matmul (MXU work) — no lax.scan: the
-    earlier G-step scan spent most of the EQ's device time in while-loop
-    machinery (dynamic-update-slice of the stacked outputs per step), not
-    math.  Stages:
-      1. inj[g]  = sum_u A^{U-1-u} B x[gU+u]      — one (U, d) matmul;
-      2. [s_1..s_G] = inj @ group_toeplitz        — one (G d, G d) matmul
-         (s_g is the state entering group g; s_0 = 0, s_G = end state);
-      3. y0 = x @ group_fir^T + s @ group_out     — two matmuls.
-    """
-    U = ops.unroll
-    block = xb.shape[-1]
-    G = block // U
-    lead = xb.shape[:-1]
-    x_g = xb.reshape(lead + (G, U))                           # (..., K, G, U)
-    y0, end_states = _grouped_recurrence(x_g, ops, fast=fast)
-    return y0.reshape(lead + (block,)), end_states
-
-
-def _grouped_recurrence(
+def _cat_matmul(
     x_g: jnp.ndarray, ops: BlockOperators, fast: bool = False
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Zero-carry outputs + end states on pre-grouped input (..., K, G, U).
+    """(y0, inj) per group of (..., K, G, U) input: the zero-state group
+    output x_g @ group_fir^T and the state injection x_g @ group_in.
 
-    Reference form for the Pallas IIR kernels' tests; production paths use
-    _grouped_states + _grouped_apply directly (the carry folds into the
-    group-entry states there).
+    In fast mode both share ONE bf16x3 matmul against the weight concat
+    [group_fir^T | group_in] (eq_cat_weights), so the input is read once.
+    Full precision keeps them split: inj must stay full float32, and a
+    full-precision concat would widen the FIR matmul for nothing.
     """
-    s_in, end_states = _grouped_states(x_g, ops)
-    sigma0 = jnp.zeros_like(end_states)
-    return _grouped_apply(x_g, s_in, sigma0, ops, fast=fast), end_states
+    f32 = jnp.float32
+    U = ops.unroll
+    if fast:
+        cat = einsum_prec("...gu,uv->...gv", x_g,
+                          jnp.asarray(eq_cat_weights(ops), dtype=f32),
+                          fast=True)
+        return cat[..., :U], cat[..., U:]
+    inj = einsum_f32("...gu,ud->...gd", x_g,
+                     jnp.asarray(ops.group_in, dtype=f32))
+    y0 = einsum_f32("...gu,uv->...gv", x_g,
+                    jnp.asarray(ops.group_fir.T, dtype=f32))
+    return y0, inj
 
 
-def _grouped_states(
-    x_g: jnp.ndarray, ops: BlockOperators
+def _state_solve(
+    inj: jnp.ndarray, toe: jnp.ndarray, fast: bool = False
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Zero-init group-entry states for (..., K, G, U) input.
+    """Zero-init group-entry states from per-group injections.
 
-    Returns (s_in (..., K, G, d): state entering each group from a zero
-    block start, end_states (..., K, d)).
+    ``inj`` (..., K, G, d); ``toe`` the (G d, G d) group Toeplitz.  Returns
+    (s_in (..., K, G, d): the state entering each group from a zero block
+    start, end_states (..., K, d)).  The solve is one matmul; in fast mode
+    it runs bf16x3 — unlike operator CONSTRUCTION (where rounding is
+    resonance-amplified) this application matmul is numerically benign.
     """
-    d = ops.A.shape[0]
-    G = x_g.shape[-2]
-    lead = x_g.shape[:-2]
-    gIn = jnp.asarray(ops.group_in, dtype=jnp.float32)        # (U, d)
-    toe = jnp.asarray(ops.group_toeplitz, dtype=jnp.float32)  # (G d, G d)
-    inj = einsum_f32("...gu,ud->...gd", x_g, gIn)             # (..., K, G, d)
-    s_tail = einsum_f32(
-        "...x,xy->...y", inj.reshape(lead + (G * d,)), toe
+    f32 = jnp.float32
+    G, d = inj.shape[-2:]
+    lead = inj.shape[:-2]
+    s_tail = einsum_prec(
+        "...x,xy->...y", inj.reshape(lead + (G * d,)),
+        jnp.asarray(toe, dtype=f32), fast=fast,
     ).reshape(lead + (G, d))                                  # s_1..s_G
     end_states = s_tail[..., G - 1, :]
     s_in = jnp.concatenate(
-        [jnp.zeros(lead + (1, d), jnp.float32), s_tail[..., : G - 1, :]],
-        axis=-2,
+        [jnp.zeros(lead + (1, d), f32), s_tail[..., : G - 1, :]], axis=-2
     )
     return s_in, end_states
+
+
+def _grouped_parts(
+    x_g: jnp.ndarray, ops: BlockOperators, fast: bool = False
+) -> Tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray]:
+    """State pass on grouped input (..., K, G, U): (y0, s_in, end_states).
+
+    Split BEFORE the carry solve, for callers that must inject a
+    cross-shard sigma0 between the passes (parallel/pipeline, streaming).
+    """
+    y0, inj = _cat_matmul(x_g, ops, fast=fast)
+    s_in, end_states = _state_solve(inj, ops.group_toeplitz, fast=fast)
+    return y0, s_in, end_states
 
 
 def _grouped_run(
@@ -134,106 +134,10 @@ def _grouped_run(
     sigma0: jnp.ndarray | None = None,
     fast: bool = False,
 ) -> Tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray]:
-    """One full grouped EQ pass: (y unclipped, end_states, sigma).
-
-    In fast mode the state-injection and FIR-output matmuls share ONE
-    weight-concatenated bf16x3 matmul  x_g @ [fir^T | group_in]  — the
-    frames tensor is read from HBM once instead of twice (measured 101 ->
-    89 us/signal on the 60 s serving config).  Concatenating along the
-    WEIGHT columns is cheap; the earlier [x | s] INPUT concat was the
-    lane-misaligned-copy trap documented in _grouped_apply.  Full
-    precision keeps the split form: inj must stay HIGHEST there, and a
-    HIGHEST concat would double the FIR matmul's MXU passes.
-    """
-    f32 = jnp.float32
-    d = ops.A.shape[0]
-    U = ops.unroll
-    G = x_g.shape[-2]
-    lead = x_g.shape[:-2]
-    toe = jnp.asarray(ops.group_toeplitz, dtype=f32)
-    if fast:
-        w_cat = np.concatenate([ops.group_fir.T, ops.group_in], axis=1)
-        cat = jnp.einsum(
-            "...gu,uv->...gv", x_g, jnp.asarray(w_cat, dtype=f32),
-            precision=jax.lax.Precision.HIGH, preferred_element_type=f32,
-        )
-        y0 = cat[..., :U]
-        inj = cat[..., U:]
-    else:
-        inj = einsum_f32("...gu,ud->...gd", x_g,
-                         jnp.asarray(ops.group_in, dtype=f32))
-        y0 = jnp.einsum(
-            "...gu,uv->...gv", x_g,
-            jnp.asarray(ops.group_fir.T, dtype=f32),
-            precision=jax.lax.Precision.HIGHEST,
-            preferred_element_type=f32,
-        )
-    # The group-Toeplitz state solve also runs bf16x3 in fast mode: unlike
-    # operator CONSTRUCTION (where rounding is resonance-amplified), this
-    # application matmul is numerically benign — measured 102.5 -> 102.4 dB
-    # for EQ 88 -> 74 us/signal.
-    toe_prec = jax.lax.Precision.HIGH if fast else jax.lax.Precision.HIGHEST
-    s_tail = jnp.einsum(
-        "...x,xy->...y", inj.reshape(lead + (G * d,)), toe,
-        precision=toe_prec, preferred_element_type=f32,
-    ).reshape(lead + (G, d))
-    end_states = s_tail[..., G - 1, :]
-    s_in = jnp.concatenate(
-        [jnp.zeros(lead + (1, d), f32), s_tail[..., : G - 1, :]], axis=-2
-    )
+    """One full grouped EQ pass: (y unclipped, end_states, sigma)."""
+    y0, s_in, end_states = _grouped_parts(x_g, ops, fast=fast)
     sigma = _carry_states(end_states, ops, sigma0)
-    gPows = jnp.asarray(ops.group_pows, dtype=f32)
-    s_true = s_in + einsum_f32("gef,...kf->...kge", gPows, sigma)
-    y = y0 + einsum_f32(
-        "...gd,du->...gu", s_true, jnp.asarray(ops.group_out, dtype=f32)
-    )
-    return y, end_states, sigma
-
-
-def _grouped_parts(
-    x_g: jnp.ndarray, ops: BlockOperators, fast: bool = False
-) -> Tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray]:
-    """State pass returning (y0, s_in, end_states) — _grouped_run split
-    BEFORE the carry solve, for callers that must inject a cross-shard
-    sigma0 between the passes (parallel/pipeline, streaming).  In fast
-    mode the FIR output and the state injection share the ONE
-    weight-concat bf16x3 matmul, so the frames are read from HBM once —
-    the same economy as the unsharded _grouped_run (the earlier
-    states+apply split read them twice; measured +0.3 ms on 8ch x 60 s).
-    """
-    f32 = jnp.float32
-    d = ops.A.shape[0]
-    U = ops.unroll
-    G = x_g.shape[-2]
-    lead = x_g.shape[:-2]
-    if fast:
-        w_cat = np.concatenate([ops.group_fir.T, ops.group_in], axis=1)
-        cat = jnp.einsum(
-            "...gu,uv->...gv", x_g, jnp.asarray(w_cat, dtype=f32),
-            precision=jax.lax.Precision.HIGH, preferred_element_type=f32,
-        )
-        y0 = cat[..., :U]
-        inj = cat[..., U:]
-    else:
-        inj = einsum_f32("...gu,ud->...gd", x_g,
-                         jnp.asarray(ops.group_in, dtype=f32))
-        y0 = jnp.einsum(
-            "...gu,uv->...gv", x_g,
-            jnp.asarray(ops.group_fir.T, dtype=f32),
-            precision=jax.lax.Precision.HIGHEST,
-            preferred_element_type=f32,
-        )
-    toe = jnp.asarray(ops.group_toeplitz, dtype=f32)
-    toe_prec = jax.lax.Precision.HIGH if fast else jax.lax.Precision.HIGHEST
-    s_tail = jnp.einsum(
-        "...x,xy->...y", inj.reshape(lead + (G * d,)), toe,
-        precision=toe_prec, preferred_element_type=f32,
-    ).reshape(lead + (G, d))
-    end_states = s_tail[..., G - 1, :]
-    s_in = jnp.concatenate(
-        [jnp.zeros(lead + (1, d), f32), s_tail[..., : G - 1, :]], axis=-2
-    )
-    return y0, s_in, end_states
+    return _grouped_finish(y0, s_in, sigma, ops), end_states, sigma
 
 
 def _grouped_finish(
@@ -242,7 +146,11 @@ def _grouped_finish(
     sigma: jnp.ndarray,
     ops: BlockOperators,
 ) -> jnp.ndarray:
-    """Output pass of _grouped_parts once the true sigma is known."""
+    """Output pass once the true block-initial states sigma are known.
+
+    The true state entering group g of block k is s_in[k,g] + A^{gU}
+    sigma[k], so y = y0 + s_true @ group_out.
+    """
     gPows = jnp.asarray(ops.group_pows, dtype=jnp.float32)
     s_true = s_in + einsum_f32("gef,...kf->...kge", gPows, sigma)
     return y0 + einsum_f32(
@@ -254,10 +162,9 @@ def _grouped_finish(
 def eq_cat_weights(ops: BlockOperators) -> np.ndarray:
     """(U, U+d) float64 weight concat [group_fir^T | group_in].
 
-    The per-frame matmul the fused chain folds into the FIR kernel's
-    operator banks (kernels/fir_class._class_banks_cat): cat = x_g @ w_cat
-    yields [y0 | inj] per group.  float64 so the host-side composition
-    G @ w_cat is exact before the single f32/bf16x3 quantization.
+    cat = x_g @ w_cat yields [y0 | inj] per group.  The fused chain folds
+    it into the SRC operator (ops/src.fold_operator); float64 so that the
+    host composition G @ w_cat is exact before the single quantization.
     """
     return np.concatenate(
         [ops.group_fir.T.astype(np.float64),
@@ -265,131 +172,30 @@ def eq_cat_weights(ops: BlockOperators) -> np.ndarray:
     )
 
 
-def _toe_padded(ops: BlockOperators, G: int, dpad: int) -> np.ndarray:
-    """(G*dpad, G*d) float32: group_toeplitz with its INPUT rows spread to
-    the FIR cat kernel's packed-inj stride (kernels/fir_class DPAD layout,
-    inj_p[..., g*dpad + dd]) — the solve runs directly on the packed
-    tensor with no reshape/slice; rows dd >= d are zero (and the packed
-    lanes there are zero too)."""
-    d = ops.A.shape[0]
-    key = (id(ops), G, dpad, "toe_pad")
-    w = _carry_weight_cache.get(key)
-    if w is None:
-        toe = ops.group_toeplitz.astype(np.float32)   # (G*d, G*d)
-        w = np.zeros((G * dpad, G * d), np.float32)
-        for g in range(G):
-            w[g * dpad : g * dpad + d] = toe[g * d : (g + 1) * d]
-        _carry_weight_cache[key] = w
-    return w
-
-
-def _grouped_parts_packed(
-    y0_g: jnp.ndarray,
-    inj_packed: jnp.ndarray,
-    ops: BlockOperators,
-    fast: bool = False,
-) -> Tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray]:
-    """_grouped_parts from the cat FIR kernel's split emission.
-
-    ``y0_g`` (..., K, G, U) is the kernel's y0 regrouped into EQ blocks;
-    ``inj_packed`` (..., K, G*DPAD) the packed injections.  Returns
-    (y0_g, s_in, end_states) exactly like _grouped_parts — the sharded
-    pipeline and streaming super-steps drop it in and keep their carry /
-    finish flow unchanged.
-    """
-    from ..kernels.fir_class import DPAD
-
-    f32 = jnp.float32
-    d = ops.A.shape[0]
-    G = y0_g.shape[-2]
-    lead = y0_g.shape[:-2]
-    toe_prec = jax.lax.Precision.HIGH if fast else jax.lax.Precision.HIGHEST
-    s_tail = jnp.einsum(
-        "...x,xy->...y", inj_packed,
-        jnp.asarray(_toe_padded(ops, G, DPAD)),
-        precision=toe_prec, preferred_element_type=f32,
-    ).reshape(lead + (G, d))
-    end_states = s_tail[..., G - 1, :]
-    s_in = jnp.concatenate(
-        [jnp.zeros(lead + (1, d), f32), s_tail[..., : G - 1, :]], axis=-2
-    )
-    return y0_g, s_in, end_states
-
-
-def _finish_tables(ops: BlockOperators, G: int, dpad: int):
-    """Packed-transposed weight tables for the Pallas EQ finish.
-
-    The finish kernel (kernels/eq_finish.py) wants s_true in the packing
-    st[b, ksup, dd*128 + g]: group shift (s_in[g] = s_tail[g-1]) and the
-    e-extraction fold into the tables, so XLA emits the packed layout
-    from plain lane-aligned matmuls on the kernel's packed inj — no
-    relayout anywhere.  Returns (toe_in_pt (G*dpad, S*dpad*128),
-    gpows_pt (d, S*d*128), toe_e (G*dpad, d)) with S = G // 128 —
-    the packing is d-exact (no DPAD pad: the finish kernel's contraction
-    carries d directly, and the slimmer table keeps the toe matmul at
-    its unpadded flop count).
-    """
-    d = ops.A.shape[0]
-    key = (id(ops), G, dpad, "finish_pt")
-    hit = _carry_weight_cache.get(key)
-    if hit is not None:
-        return hit
-    S = G // 128
-    toe = ops.group_toeplitz.astype(np.float32)       # (G*d, G*d)
-    ncol = S * d * 128                                # d-exact packing
-    toe_in = np.zeros((G * dpad, ncol), np.float32)
-    gpows = np.zeros((d, ncol), np.float32)
-    gP = ops.group_pows.astype(np.float32)            # (G, d, d)
-    for g in range(G):
-        sup, gs = divmod(g, 128)
-        for dd in range(d):
-            col = sup * d * 128 + dd * 128 + gs
-            if g >= 1:
-                for v in range(g):                    # toe is lower-tri
-                    toe_in[v * dpad : v * dpad + d, col] = (
-                        toe[v * d : (v + 1) * d, (g - 1) * d + dd]
-                    )
-            gpows[:, col] = gP[g, dd, :]
-    toe_e = np.zeros((G * dpad, d), np.float32)
-    for v in range(G):
-        toe_e[v * dpad : v * dpad + d, :] = (
-            toe[v * d : (v + 1) * d, (G - 1) * d :]
-        )
-    hit = (toe_in, gpows, toe_e)
-    _carry_weight_cache[key] = hit
-    return hit
-
-
 def equalize_frames_cat(
     y0_frames: jnp.ndarray,
-    inj_packed: jnp.ndarray,
+    inj_frames: jnp.ndarray,
     fs: int,
     cfg: EQConfig,
     unroll: int,
     groups_per_block: int = 128,
     fast: bool = False,
     rows: Tuple[int, int] | None = None,
-    finish: str = "auto",
-    interpret: bool = False,
 ):
-    """EQ finish on the cat FIR kernel's fused emission.
+    """EQ finish on the cat SRC's emission (ops/src.resample_frames_cat).
 
-    ``y0_frames`` (..., F, U): frames @ group_fir^T; ``inj_packed``
-    (..., K, G*DPAD): the packed state injections (see
-    kernels/fir_class.polyphase_fir_class_rect_cat).  Only the
-    group-Toeplitz state solve + carry + readout remain here; the output
-    equals equalize_frames on the raw frames (gated in
-    tests/test_cat_chain.py).  F must be a multiple of
-    ``groups_per_block`` (the kernel's padded grid guarantees it).
+    ``y0_frames`` (..., F, U) = frames @ group_fir^T and ``inj_frames``
+    (..., F, d) = frames @ group_in.  Only the group-Toeplitz state solve,
+    the block carry and the readout remain here; the output equals
+    equalize_frames on the raw frames (gated in tests/test_cat_chain.py).
+    F must be a multiple of ``groups_per_block`` (resample_frames with
+    pad_frames guarantees it).
 
     ``rows=(r0, r1)``: also return the clipped output rows [r0, r1) as a
-    small side tensor computed from row slices of the kernel-materialized
-    y0 — the spectra consumer's path that avoids slicing the full-size
-    output fusion (a measured 15.7 us full-tensor XLA relayout, STATUS
-    round 4).
+    small side tensor recomputed from row slices of y0 and the states —
+    the spectra consumer's path, so the full-size output fusion is never
+    sliced.
     """
-    from ..kernels.fir_class import DPAD
-
     bands = cfg.active_bands(fs)
     if cfg.bypass or not bands:
         raise ValueError("cat path requires an active EQ "
@@ -403,70 +209,27 @@ def equalize_frames_cat(
     d = 2 * len(bands)
     if y0_frames.shape[-1] != U:
         raise ValueError(f"y0 width {y0_frames.shape[-1]} != unroll {U}")
-    if inj_packed.shape[-2:] != (K, G * DPAD):
+    if inj_frames.shape[-2:] != (F, d):
         raise ValueError(
-            f"packed inj shape {inj_packed.shape[-2:]} != {(K, G * DPAD)}"
+            f"inj shape {inj_frames.shape[-2:]} != {(F, d)}"
         )
     ops = make_block_operators(bands, int(fs), cfg.q, G * U, U)
-    if ops.A.shape[0] != d:
-        raise ValueError("active band count changed under the config")
     f32 = jnp.float32
     lead = y0_frames.shape[:-2]
-    if finish == "auto":
-        # Measured (round 5, 60 s serving config): the Pallas finish
-        # kernel holds 57.9 us vs the XLA finish fusion's ~42 — its own
-        # block I/O pays the 160->256 VMEM lane pad on BOTH y0 and z at
-        # DMA granularity (~50% bandwidth), where XLA's fusion reads the
-        # padded layout with masked vectors.  XLA stays the default; the
-        # kernel remains selectable for study (numbers in STATUS r5).
-        finish = "xla"
-    if finish == "pallas":
-        # Packed-transposed finish: the group shift, sigma correction and
-        # end-state extraction ride packed weight tables, and the Pallas
-        # kernel (kernels/eq_finish.py) does y0 + readout + clip in one
-        # memory-bound pass.
-        from ..kernels.eq_finish import eq_finish_pallas
-
-        toe_in_pt, gpows_pt, toe_e = _finish_tables(ops, G, DPAD)
-        toe_prec = (jax.lax.Precision.HIGH if fast
-                    else jax.lax.Precision.HIGHEST)
-        s_in_pt = jnp.einsum(
-            "...x,xy->...y", inj_packed, jnp.asarray(toe_in_pt),
-            precision=toe_prec, preferred_element_type=f32,
-        )
-        e = einsum_f32("...x,xy->...y", inj_packed, jnp.asarray(toe_e))
-        sigma = _carry_states(e, ops)
-        st_pt = s_in_pt + einsum_f32(
-            "...kf,fx->...kx", sigma, jnp.asarray(gpows_pt)
-        )
-        st_pt = st_pt.reshape(lead + (F // 128, 128 * d))
-        z = eq_finish_pallas(
-            y0_frames, st_pt, ops.group_out, interpret=interpret
-        )
-        if rows is None:
-            return z
-        r0, r1 = rows
-        # z is a kernel-materialized array: the row slice is a cheap
-        # dynamic-slice, not a fusion-output relayout.
-        return z, z[..., r0:r1, :]
     y0 = y0_frames.reshape(lead + (K, G, U))
-    y0, s_in, end_states = _grouped_parts_packed(
-        y0, inj_packed, ops, fast=fast
+    s_in, end_states = _state_solve(
+        inj_frames.reshape(lead + (K, G, d)), ops.group_toeplitz, fast=fast
     )
     sigma = _carry_states(end_states, ops)
-    gPows = jnp.asarray(ops.group_pows, dtype=f32)
-    s_true = s_in + einsum_f32("gef,...kf->...kge", gPows, sigma)
-    gOut = jnp.asarray(ops.group_out, dtype=f32)
     z = jnp.clip(
-        y0 + einsum_f32("...gd,du->...gu", s_true, gOut), -1.0, 1.0
+        _grouped_finish(y0, s_in, sigma, ops), -1.0, 1.0
     ).reshape(lead + (F, U))
     if rows is None:
         return z
     # Side rows for the spectra consumer.  Recompute the ~13 rows' states
     # from s_in/end_states slices + tiny sigma gathers instead of slicing
-    # s_true: slicing would force the full (K, G, d) s_true OUT of the
-    # final fusion as a 5.9 MB copy (measured 7.2 us/signal, round 5);
-    # the Toeplitz product is materialized regardless.
+    # s_true, which would force the full (K, G, d) s_true out of the final
+    # fusion as a copy.
     r0, r1 = rows
     idx = np.arange(r0, r1)
     y0_rows = y0_frames[..., r0:r1, :]
@@ -488,52 +251,19 @@ def equalize_frames_cat(
                         axis=-2)
     gp_rows = jnp.asarray(ops.group_pows[idx % G].astype(np.float32))
     st_rows = sin_rows + einsum_f32("ref,...rf->...re", gp_rows, sig_rows)
+    gOut = jnp.asarray(ops.group_out, dtype=f32)
     z_rows = jnp.clip(
         y0_rows + einsum_f32("...gd,du->...gu", st_rows, gOut), -1.0, 1.0
     )
     return z, z_rows
 
 
-def _grouped_apply(
-    x_g: jnp.ndarray,
-    s_in: jnp.ndarray,
-    sigma: jnp.ndarray,
-    ops: BlockOperators,
-    fast: bool = False,
-) -> jnp.ndarray:
-    """Output pass with the block carry folded into the group states.
-
-    The true state entering group g of block k is s_in[k,g] + A^{gU}
-    sigma[k], so the output is
-
-        y = x @ group_fir^T  +  s_true @ group_out
-
-    as two matmuls whose add fuses into the second's epilogue.  (An earlier
-    formulation concatenated [x | s_true] into one (U+d, U) matmul to share
-    an output buffer; the 170-lane concat compiled to a full lane-misaligned
-    copy of the signal — 70 us/signal, ~2x the matmuls it fed — so the
-    split form is strictly faster on TPU.)
-    """
-    gPows = jnp.asarray(ops.group_pows, dtype=jnp.float32)    # (G, d, d)
-    s_true = s_in + einsum_f32("gef,...kf->...kge", gPows, sigma)
-    prec = jax.lax.Precision.HIGH if fast else jax.lax.Precision.HIGHEST
-    y = jnp.einsum(
-        "...gu,uv->...gv", x_g,
-        jnp.asarray(ops.group_fir.T, dtype=jnp.float32), precision=prec,
-        preferred_element_type=jnp.float32,
-    )
-    return y + einsum_f32(
-        "...gd,du->...gu", s_true,
-        jnp.asarray(ops.group_out, dtype=jnp.float32),
-    )
-
-
 # Below this K the carry solve is ONE dense (K d, K d) matmul against a
 # host-precomputed weight triangle; above it, the log-depth scan.  The scan
-# compiles to dozens of tiny (d, d) ops whose fixed per-op overhead measured
-# ~100 us/signal inside the fused chain — the matmul is ~5 us and the weight
-# table stays small (K=512, d=12 -> 151 MB is the ceiling; typical chains
-# sit at K<=352 / d<=10 -> <50 MB).
+# compiles to dozens of tiny (d, d) ops, each paying a fixed per-op cost,
+# while the matmul is one op and the weight table stays small (K=512,
+# d=12 -> 151 MB is the ceiling; typical chains sit at K<=352 / d<=10 ->
+# <50 MB).
 _CARRY_ALLPAIRS_MAX = 512
 _carry_weight_cache: dict = {}
 
@@ -573,7 +303,7 @@ def _carry_states(
     """True initial state per block: sigma_{k+1} = A^block sigma_k + e_k.
 
     sigma_0 = sigma0 (zero by default).  For K <= _CARRY_ALLPAIRS_MAX the
-    whole triangular solve is one MXU matmul (see _carry_weights); larger K
+    whole triangular solve is one matmul (see _carry_weights); larger K
     falls back to a log-depth associative scan over (M, v) pairs under
     (M2,v2)o(M1,v1) = (M2 M1, M2 v1 + v2), scanning inclusively over
     [(I, sigma0), (A^block, e_0), ..., (A^block, e_{K-2})] so position k
@@ -631,7 +361,7 @@ def equalize(x: jnp.ndarray, fs: int, cfg: EQConfig, block: int = 8192,
     Matches the golden oracle (sequential lfilter cascade) to float32
     rounding; see tests/test_eq.py for the SNR gate.  Jit-compiled per
     (fs, config, block, unroll, shape).  ``fast`` trades the output FIR
-    einsum down to bf16x3 (~100 dB vs oracle) for half the MXU time.
+    and state-solve matmuls down to bf16x3 (utils.precision.FAST).
     """
     if cfg.bypass:
         return x
@@ -653,11 +383,10 @@ def equalize_frames(
 ) -> jnp.ndarray:
     """EQ on frame-major input (..., F, P) -> frame-major output, clipped.
 
-    The fused SRC->EQ handoff: the shear FIR kernel emits P-wide frames,
+    The fused SRC->EQ handoff: ops/src.resample_frames emits P-wide frames,
     and this path consumes them with unroll = P and block = G*P so that
     every reshape between the two stages (and inside the EQ) is a free
-    leading-axis regroup — no 128-misaligned lane retile anywhere.  The
-    flat signal is frames.reshape(..., F*P) — a zero-cost view on host.
+    leading-axis regroup — no relayout anywhere.  The flat signal is frames.reshape(..., F*P) — a zero-cost view on host.
 
     Semantics identical to ``equalize`` on the flattened signal (same
     operators, same carry algebra; zero-padded tail blocks sliced off).
@@ -780,40 +509,3 @@ def final_state(x: jnp.ndarray, fs: int, cfg: EQConfig, block: int = 1024):
     """End state of the cascade after consuming ``x`` (see equalize_stream)."""
     _, s = equalize_stream(x, fs, cfg, None, block)
     return s
-
-
-def equalize_pallas(
-    x: jnp.ndarray,
-    fs: int,
-    cfg: EQConfig,
-    block: int = 1024,
-    unroll: int = 16,
-    interpret: bool = False,
-) -> jnp.ndarray:
-    """``equalize`` through the experimental Pallas block kernels
-    (kernels/experiments/iir.py — superseded by the fused XLA path; kept
-    with its measured numbers).
-
-    Same semantics and operators as the jnp path; the kernels re-run the
-    recurrence from true initial states instead of applying a correction
-    matmul, so HBM sees x twice and y once.
-    """
-    from ..kernels.experiments.iir import block_apply, block_end_states
-
-    if cfg.bypass:
-        return x
-    bands = cfg.active_bands(fs)
-    if not bands:
-        return jnp.clip(x, -1.0, 1.0)
-    ops = make_block_operators(bands, int(fs), cfg.q, block, unroll)
-    xf = x.astype(jnp.float32)
-    lead = xf.shape[:-1]
-    n = xf.shape[-1]
-    K = -(-n // block)
-    pad = K * block - n
-    xb = jnp.pad(xf.reshape(-1, n), ((0, 0), (0, pad))).reshape(-1, K, block)
-    e = block_end_states(xb, ops, interpret=interpret)
-    sigma = _carry_states(e, ops)
-    y = block_apply(xb, sigma, ops, interpret=interpret)
-    y = y.reshape(lead + (K * block,))[..., :n]
-    return jnp.clip(y, -1.0, 1.0)

@@ -43,14 +43,15 @@ output is always clipped.  Both differences are far below the 60 dB gate
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional
 
 import jax
 import jax.numpy as jnp
 
 from ..config import EQConfig
 from ..utils import df32
-from ..utils.precision import einsum_f32, matmul_f32
+from ..utils.precision import einsum_f32, einsum_prec, matmul_f32
+from .eq import _state_solve
 
 _HI = jax.lax.Precision.HIGHEST
 
@@ -232,7 +233,7 @@ def _dynamic_operators(gains_db: jnp.ndarray, fs: int, cfg: EQConfig,
     All tables are f32-rounded views of one df32-exact system (see module
     docstring).  With ``K`` given and small enough, the dense block-carry
     triangle (K d, K d) is materialized too, so the apply side solves the
-    cross-block recurrence in one MXU matmul exactly like the static path.
+    cross-block recurrence in one matmul exactly like the static path.
     """
     import numpy as np
 
@@ -312,10 +313,7 @@ def _lower_triangle(pows: jnp.ndarray, n: int, d: int) -> jnp.ndarray:
     one zero-extended (2 n d)-vector by v*d.  Tiling that vector with row
     stride 2 n d - d realizes ALL n rotations as one contiguous reshape
     (f = v*stride + m  =>  f mod 2nd = m - v*d), so the whole triangle is
-    plain lane-aligned copies plus one leading-dim transpose.  The earlier
-    jnp.take form compiled to a TPU gather (~435 us for the two serving
-    triangles); the per-v slice-stack form wrote (d, n, d) slabs at a
-    12-lane minor — ~10x write amplification.
+    plain contiguous copies plus one leading-dim transpose — no gather.
     """
     nd = n * d
     # band[i, k*d + j] = pows[k][j, i]
@@ -386,43 +384,14 @@ def _dynamic_grouped(
 ) -> jnp.ndarray:
     """Scan-free data path on grouped input (..., K, G, U), traced operators.
 
-    Structurally identical to the static path (ops/eq._grouped_states +
-    _carry_states + _grouped_apply): dense-triangle carry solve where the
-    builder materialized it, split output matmuls (the earlier [x | s]
-    concat matmul compiled to a full lane-misaligned copy — see
-    ops/eq._grouped_apply).  Returns the corrected (unclipped) output in
-    grouped form; ``fast`` runs the FIR output matmul at bf16x3.
+    Structurally identical to the static path (ops/eq._grouped_parts +
+    _carry_states + _grouped_finish): dense-triangle carry solve where the
+    builder materialized it.  Returns the corrected (unclipped) output in
+    grouped form; ``fast`` runs the FIR/injection and state-solve matmuls
+    at bf16x3.
     """
-    f32 = jnp.float32
-    d = ops.group_in.shape[-1]
-    U = ops.group_in.shape[0]
-    G = x_g.shape[-2]
-    K = x_g.shape[-3]
-    lead = x_g.shape[:-2]
-
-    y0 = None
-    if fast:
-        # Weight-concat fusion (see ops/eq._grouped_run): injection and FIR
-        # output share one bf16x3 matmul — the frames read from HBM once.
-        w_cat = jnp.concatenate([ops.fir_t, ops.group_in], axis=1)
-        cat = jnp.einsum(
-            "...gu,uv->...gv", x_g, w_cat,
-            precision=jax.lax.Precision.HIGH, preferred_element_type=f32,
-        )
-        y0 = cat[..., :U]
-        inj = cat[..., U:]
-    else:
-        inj = einsum_f32("...gu,ud->...gd", x_g, ops.group_in)
-    # bf16x3 toe solve in fast mode — benign application matmul (ops/eq).
-    toe_prec = jax.lax.Precision.HIGH if fast else _HI
-    s_tail = jnp.einsum(
-        "...x,xy->...y", inj.reshape(lead + (G * d,)), ops.toe,
-        precision=toe_prec, preferred_element_type=f32,
-    ).reshape(lead + (G, d))                              # s_1..s_G
-    e_states = s_tail[..., G - 1, :]
-    s_in = jnp.concatenate(
-        [jnp.zeros(lead + (1, d), f32), s_tail[..., : G - 1, :]], axis=-2
-    )
+    y0, inj = _dyn_cat_matmul(x_g, ops, fast)
+    s_in, e_states = _state_solve(inj, ops.toe, fast=fast)
 
     # Cross-block carry: sigma_{k+1} = A^block sigma_k + e_k, sigma_0 = 0.
     sigma = dyn_block_carry(e_states, ops.carry_w, ops.A_blk)
@@ -431,13 +400,26 @@ def _dynamic_grouped(
     # group-entry states; FIR and state readout are split matmuls whose
     # add fuses into the second's epilogue.
     s_true = s_in + einsum_f32("gef,...kf->...kge", ops.pows_g, sigma)
-    if y0 is None:
-        y0 = jnp.einsum(
-            "...gu,uv->...gv", x_g, ops.fir_t,
-            precision=jax.lax.Precision.HIGHEST,
-            preferred_element_type=f32,
-        )
     return y0 + einsum_f32("...gd,du->...gu", s_true, ops.group_out)
+
+
+def dyn_cat_weights(ops: DynOperators) -> jnp.ndarray:
+    """(U, U+d) traced weight concat [group_fir^T | group_in] — the
+    dynamic twin of ops/eq.eq_cat_weights."""
+    return jnp.concatenate([ops.fir_t, ops.group_in], axis=1)
+
+
+def _dyn_cat_matmul(x_g: jnp.ndarray, ops: DynOperators, fast: bool):
+    """(y0, inj) per group with traced operators (ops/eq._cat_matmul):
+    one shared bf16x3 matmul in fast mode, split full-precision ones
+    otherwise."""
+    U = ops.group_in.shape[0]
+    if fast:
+        cat = einsum_prec("...gu,uv->...gv", x_g, dyn_cat_weights(ops),
+                          fast=True)
+        return cat[..., :U], cat[..., U:]
+    return (einsum_f32("...gu,uv->...gv", x_g, ops.fir_t),
+            einsum_f32("...gu,ud->...gd", x_g, ops.group_in))
 
 
 @functools.partial(
@@ -492,9 +474,9 @@ def equalize_dynamic_frames(
 ) -> jnp.ndarray:
     """Traced-gains EQ on frame-major input (..., F, P) -> frames, clipped.
 
-    The serving fast path: combine with the shear FIR kernel
-    (AudioPipeline.jit_forward_frames_dynamic) for per-request gain
-    changes at zero compile cost AND zero device-side lane retiles.
+    The serving fast path: combined with ops/src.resample_frames
+    (AudioPipeline.jit_forward_frames_dynamic) it serves per-request gain
+    changes at zero compile cost.
 
     Same semantics drift as ``equalize_dynamic``: no exact small-gain skip
     (near-identity filter instead) and the output is always clipped.
@@ -543,8 +525,8 @@ def build_dynamic_operators(
 ) -> DynOperators:
     """Traced-gains operator builder, separately jitted from the data path.
 
-    The serving split (VERDICT round-1 item 2): operator construction costs
-    ~0.2 ms and depends only on the gain vector + geometry, so run THIS when
+    The serving split: operator construction depends only on the gain
+    vector + geometry, so run THIS when
     gains change and feed its pytree to ``equalize_dynamic_frames_ops`` per
     batch — the per-batch path is then structurally identical to the static
     fused path.  One compile serves every gain vector.
@@ -646,7 +628,7 @@ def host_dyn_tables(
     pows_g (G, d, d), A_blk (d, d), pk (K, d, d) | None) as float64 numpy —
     everything ``_expand_dyn_operators`` needs.  Split out so the serving
     cycle's host-compute, upload and device-dispatch costs can be measured
-    independently (VERDICT r3 item 6).
+    independently.
     """
     import numpy as np
 
@@ -830,140 +812,42 @@ def equalize_dynamic_frames_ops(
     return _apply_dynamic_frames(frames, ops, groups_per_block, fast)
 
 
-# ---- dynamic-gains cat serving (round 5) ------------------------------------
+# ---- dynamic-gains cat serving ---------------------------------------------
 #
-# The static chain's round-5 headline folds the EQ's weight-concat matmul
-# into the FIR operator banks (kernels/fir_class cat section).  For traced
-# gains the fold can't happen at design time — but the BANKS can rebuild
-# on device per gain change:  G2 = G @ [fir_t | group_in] is one small
-# traced matmul, and the per-class rotation is one row-gather against a
-# static index table (kernels/fir_class.cat_bank_row_index).  Cost per
-# change: ~34 MB of bank materialization on device (no upload — the
-# DynOperators tables are already resident); per batch the chain then
-# runs at the static cat rate.
-
-
-class CatDynTables(NamedTuple):
-    """Per-gain-change device tables for the dynamic cat chain: the
-    pre-rotated FIR banks and the padded group-Toeplitz — both traced
-    inputs of the per-batch program, rebuilt once per change."""
-
-    banks: jnp.ndarray
-    toe_pad: jnp.ndarray
-
-
-def build_cat_tables_dyn(plan, ops: DynOperators,
-                         fast: bool = True) -> CatDynTables:
-    """banks + padded toe from dynamic operators (one call per change)."""
-    from ..kernels.fir_class import DPAD
-
-    return CatDynTables(
-        banks=build_cat_banks_dyn(plan, ops, fast=fast),
-        toe_pad=_dyn_toe_padded(ops, DPAD),
-    )
-
-
-def build_cat_banks_dyn(plan, ops: DynOperators, fast: bool = True):
-    """Traced pre-rotated cat banks from dynamic operators.
-
-    Returns (128, 2, nc*128, P+DPAD) bf16 hi/lo (fast) or
-    (128, nc*128, P+DPAD) f32 — the ``banks`` argument of
-    kernels/fir_class.polyphase_fir_class_rect_cat.
-    """
-    from ..kernels.fir_class import DPAD, cat_bank_row_index
-
-    f32 = jnp.float32
-    P = plan.P
-    d = ops.group_in.shape[-1]
-    w_cat = jnp.concatenate([ops.fir_t, ops.group_in], axis=1)  # (P, P+d)
-    G2 = jnp.einsum(
-        "wp,pv->wv", jnp.asarray(plan.G, f32), w_cat,
-        precision=jax.lax.Precision.HIGHEST, preferred_element_type=f32,
-    )                                                           # (W, P+d)
-    # Zero guard row (index W) + DPAD column pad, then one row-gather per
-    # class against the static rotation table.
-    G2e = jnp.pad(G2, ((0, 1), (0, DPAD - d)))
-    idx = jnp.asarray(cat_bank_row_index(plan))                 # (128, nc*128)
-    banks = jnp.take(G2e, idx, axis=0)                          # (128, q, Vp)
-    if not fast:
-        return banks
-    # hi/lo split via mantissa masking: the naive round-trip form
-    # (banks - bh.astype(f32)) gets algebraically simplified by XLA on TPU
-    # into an effectively-zero low half (measured 56.6 dB — plain-bf16
-    # quality).  Truncating the low 16 bits gives an hi part exactly
-    # representable in bf16 that no simplifier can fold, and the residual
-    # subtraction stays a real f32 op.
-    u = jax.lax.bitcast_convert_type(banks, jnp.uint32)
-    hi_f32 = jax.lax.bitcast_convert_type(
-        u & jnp.uint32(0xFFFF0000), jnp.float32
-    )
-    bh = hi_f32.astype(jnp.bfloat16)
-    bl = (banks - hi_f32).astype(jnp.bfloat16)
-    return jnp.stack([bh, bl], axis=1)
-
-
-def _dyn_toe_padded(ops: DynOperators, dpad: int) -> jnp.ndarray:
-    """(G*dpad, G*d) traced: ops.toe rows spread to the packed-inj stride
-    (ops/eq._toe_padded's traced twin).  Hoist it to gain-change time via
-    build_cat_tables_dyn — inside a per-batch program it would re-gather
-    ~12 MB every batch."""
-    import numpy as np
-
-    d = ops.group_in.shape[-1]
-    Gd = ops.toe.shape[0]
-    G = Gd // d
-    toe_e = jnp.concatenate(
-        [ops.toe, jnp.zeros((1, Gd), jnp.float32)], axis=0
-    )
-    v = np.arange(G * dpad) // dpad
-    dd = np.arange(G * dpad) % dpad
-    idx = np.where(dd < d, v * d + dd, Gd).astype(np.int32)
-    return jnp.take(toe_e, jnp.asarray(idx), axis=0)
+# The static chain folds the EQ's weight-concat matmul into the SRC operator
+# on the host (ops/src.fold_operator).  With traced gains the same fold runs
+# on device once per gain change — G (W, P) @ dyn_cat_weights (P, P+d), a
+# few hundred KB — and per batch the chain runs the static cat structure.
 
 
 def equalize_dynamic_cat_ops(
     y0_frames: jnp.ndarray,
-    inj_packed: jnp.ndarray,
+    inj_frames: jnp.ndarray,
     ops: DynOperators,
     fast: bool = False,
-    toe_padded: Optional[jnp.ndarray] = None,
 ) -> jnp.ndarray:
-    """EQ finish on the cat kernel's emission with TRACED operators.
+    """EQ finish on the cat SRC's emission with TRACED operators.
 
-    The dynamic twin of ops/eq.equalize_frames_cat: y0 and the packed inj
-    come straight off polyphase_fir_class_rect_cat (banks built by
-    build_cat_banks_dyn from the SAME DynOperators), so only the
-    group-Toeplitz solve + carry + readout run here.  Semantics match
+    The dynamic twin of ops/eq.equalize_frames_cat: y0 (..., F, U) and inj
+    (..., F, d) come straight off ops/src.resample_frames_cat with the
+    operator folded from the SAME DynOperators, so only the group-Toeplitz
+    solve + carry + readout run here.  Semantics match
     equalize_dynamic_frames_ops on the raw frames (gated in
     tests/test_cat_chain.py).
     """
-    from ..kernels.fir_class import DPAD
-
-    f32 = jnp.float32
     d = ops.group_in.shape[-1]
     U = ops.group_in.shape[0]
-    G = 128
+    G = ops.toe.shape[0] // d
     F = y0_frames.shape[-2]
     if F % G:
         raise ValueError(f"frame count {F} not a multiple of {G}")
     K = F // G
-    if inj_packed.shape[-2:] != (K, G * DPAD):
-        raise ValueError(
-            f"packed inj shape {inj_packed.shape[-2:]} != {(K, G * DPAD)}"
-        )
+    if inj_frames.shape[-2:] != (F, d):
+        raise ValueError(f"inj shape {inj_frames.shape[-2:]} != {(F, d)}")
     lead = y0_frames.shape[:-2]
     y0 = y0_frames.reshape(lead + (K, G, U))
-    toe_prec = jax.lax.Precision.HIGH if fast else _HI
-    if toe_padded is None:
-        toe_padded = _dyn_toe_padded(ops, DPAD)
-    s_tail = jnp.einsum(
-        "...x,xy->...y", inj_packed, toe_padded,
-        precision=toe_prec, preferred_element_type=f32,
-    ).reshape(lead + (K, G, d))
-    e_states = s_tail[..., G - 1, :]
-    s_in = jnp.concatenate(
-        [jnp.zeros(lead + (K, 1, d), f32), s_tail[..., : G - 1, :]],
-        axis=-2,
+    s_in, e_states = _state_solve(
+        inj_frames.reshape(lead + (K, G, d)), ops.toe, fast=fast
     )
     sigma = dyn_block_carry(e_states, ops.carry_w, ops.A_blk)
     s_true = s_in + einsum_f32("gef,...kf->...kge", ops.pows_g, sigma)

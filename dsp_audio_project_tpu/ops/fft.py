@@ -1,310 +1,32 @@
-"""Batched radix-2 FFT as XLA-friendly vectorized butterflies.
+"""Spectrum FFTs: XLA's FFT (cuFFT on the GPU) behind the reference's rules.
 
 The reference computes spectra with a *recursive Python* radix-2 DIT FFT
-(dsp_core.py:41-66) — O(N log N) flops buried under ~2N interpreter frames.
-Here the same algorithm is expressed the TPU way: a host-precomputed
-bit-reversal permutation (one gather) followed by log2(N) fully vectorized
-butterfly stages, batched over arbitrary leading dims.  Twiddles are baked as
-compile-time constants.  Real input uses the packed-real trick (N-real ->
-N/2-complex FFT + untwiddle) so the conjugate-symmetric half is never
-computed.
-
-Sizes must be powers of two, matching the reference's constraint (its FFT
-raises on non-pow2 input; callers here zero-pad, as the reference's spectrum
-path does at dsp_core.py:81-82).
+(dsp_core.py:41-66) — O(N log N) flops buried under ~2N interpreter frames
+— and raises on non-power-of-two sizes.  Here every spectrum runs XLA's
+own FFT, which beat a vectorized butterfly port of that algorithm on the
+H100 at every size the spectra and spectrograms use (N = 2048 to 1048576);
+the power-of-two rule stays where the reference enforces it.
 """
 from __future__ import annotations
 
-import functools
-
-import jax
 import jax.numpy as jnp
-import numpy as np
 
 
-def _check_pow2(n: int) -> int:
+def check_pow2(n: int) -> int:
+    """log2(n); raises ValueError unless n is a power of two (the
+    reference's FFT constraint; its callers zero-pad, dsp_core.py:81-82)."""
     if n <= 0 or (n & (n - 1)) != 0:
         raise ValueError(f"FFT size must be a power of two, got {n}")
-    return int(np.log2(n))
+    return n.bit_length() - 1
 
 
-@functools.lru_cache(maxsize=None)
-def _bit_reversal(n: int) -> np.ndarray:
-    bits = _check_pow2(n)
-    idx = np.arange(n, dtype=np.int64)
-    rev = np.zeros_like(idx)
-    for _ in range(bits):
-        rev = (rev << 1) | (idx & 1)
-        idx >>= 1
-    return rev.astype(np.int32)
+def fft_magnitude(x: jnp.ndarray) -> jnp.ndarray:
+    """|FFT(x)| over the last axis (power-of-two length), batched."""
+    check_pow2(x.shape[-1])
+    return jnp.abs(jnp.fft.fft(x.astype(jnp.complex64), axis=-1))
 
 
-@functools.lru_cache(maxsize=None)
-def _stage_twiddles(half: int) -> np.ndarray:
-    # e^{-j pi k / half}, k < half: stage with butterfly span `half`.
-    k = np.arange(half)
-    return np.exp(-1j * np.pi * k / half).astype(np.complex64)
-
-
-def fft(x: jnp.ndarray) -> jnp.ndarray:
-    """Complex FFT over the last axis (power-of-two length), batched."""
-    n = x.shape[-1]
-    _check_pow2(n)
-    y = x.astype(jnp.complex64)[..., _bit_reversal(n)]
-    half = 1
-    while half < n:
-        y = y.reshape(y.shape[:-1] + (n // (2 * half), 2, half))
-        a = y[..., 0, :]
-        t = y[..., 1, :] * jnp.asarray(_stage_twiddles(half))
-        y = jnp.concatenate([a + t, a - t], axis=-1)
-        y = y.reshape(y.shape[:-2] + (n,))
-        half *= 2
-    return y
-
-
-def ifft(x: jnp.ndarray) -> jnp.ndarray:
-    """Inverse complex FFT over the last axis (power-of-two length)."""
-    n = x.shape[-1]
-    return jnp.conj(fft(jnp.conj(x.astype(jnp.complex64)))) / n
-
-
-@functools.lru_cache(maxsize=None)
-def _dft_matrix(m: int) -> np.ndarray:
-    jk = np.outer(np.arange(m), np.arange(m))
-    return np.exp(-2j * np.pi * jk / m).astype(np.complex64)
-
-
-@functools.lru_cache(maxsize=None)
-def _four_step_twiddle(n1: int, n2: int) -> np.ndarray:
-    # W_n^{k1 j2} applied between the column and row DFTs.
-    k1j2 = np.outer(np.arange(n1), np.arange(n2))
-    return np.exp(-2j * np.pi * k1j2 / (n1 * n2)).astype(np.complex64)
-
-
-def fft_four_step(x: jnp.ndarray, n1: int | None = None) -> jnp.ndarray:
-    """Complex FFT via the four-step (Bailey) factorization — MXU form.
-
-    With n = n1*n2, j = j1*n2 + j2, k = k1 + n1*k2:
-
-        X[k1 + n1 k2] = sum_j2 W_n2^{j2 k2} (W_n^{j2 k1}
-                        * sum_j1 Z[j1, j2] W_n1^{j1 k1})
-
-    i.e. DFT the columns (one (n1,n1) matmul), twiddle, DFT the rows (one
-    (n2,n2) matmul), transpose.  The log2(n) butterfly passes become two
-    dense matmuls — MXU work instead of VPU concat/mul chains — at
-    n*(n1+n2) complex MACs, which at audio analysis sizes is comfortably
-    under the HBM roofline.  Default split puts 128 on the lane axis
-    (n2=128) so both reshapes are lane-aligned.
-
-    Same math as the reference's radix-2 DIT recursion (dsp_core.py:41-66),
-    regrouped; matches ``fft`` to float32 rounding.
-    """
-    n = x.shape[-1]
-    _check_pow2(n)
-    if n1 is None:
-        n1 = max(2, n // 128)
-    n2 = n // n1
-    if n1 < 2 or n2 < 2 or n1 * n2 != n:
-        return fft(x)
-    lead = x.shape[:-1]
-    hi = jax.lax.Precision.HIGHEST
-    z2 = x.astype(jnp.complex64).reshape(lead + (n1, n2))
-    a = jnp.einsum(
-        "ki,...ij->...kj", jnp.asarray(_dft_matrix(n1)), z2, precision=hi
-    )
-    a = a * jnp.asarray(_four_step_twiddle(n1, n2))
-    b = jnp.einsum(
-        "...kj,jl->...kl", a, jnp.asarray(_dft_matrix(n2)), precision=hi
-    )
-    return jnp.swapaxes(b, -1, -2).reshape(lead + (n,))
-
-
-@functools.lru_cache(maxsize=None)
-def _rfft_matmul_tables(n: int, n1: int):
-    """Host tables for the direct-real four-step rfft (see rfft_matmul)."""
-    n2 = n // n1
-    k2max = n // (2 * n1) + 1            # k2 range covering bins 0..n/2
-    d1 = np.outer(np.arange(n1), np.arange(n1))
-    d1 = np.exp(-2j * np.pi * d1 / n1)
-    tw = np.outer(np.arange(n1), np.arange(n2))
-    tw = np.exp(-2j * np.pi * tw / n)    # W_n^{k1 j2}
-    d2 = np.outer(np.arange(n2), np.arange(k2max))
-    d2 = np.exp(-2j * np.pi * d2 / n2)   # W_n2^{j2 k2}, half-spectrum columns
-    f32 = np.float32
-    return (
-        d1.real.astype(f32), d1.imag.astype(f32),
-        tw.real.astype(f32), tw.imag.astype(f32),
-        d2.real.astype(f32), d2.imag.astype(f32),
-        k2max,
-    )
-
-
-def rfft_matmul(x: jnp.ndarray, n1: int = 16) -> jnp.ndarray:
-    """Real-input FFT via a direct-real four-step factorization — MXU form.
-
-    Unlike ``rfft`` (packed-real trick) this touches no even/odd lane
-    retile, no spectrum reversal, and no untwiddle pass: the first DFT
-    contracts the REAL input directly (two real matmuls), and only the
-    k2 <= n/(2*n1) half of the output grid is ever computed — conjugate
-    symmetry by construction rather than by reconstruction.  The measured
-    fast path for batched analysis (spectrum/STFT) on TPU.
-
-    Bins 0..n//2 of the reference's spectrum math (dsp_core.py:41-66,96-98);
-    matches ``rfft`` / np.fft.rfft to float32 rounding.
-    """
-    n = x.shape[-1]
-    _check_pow2(n)
-    n2 = n // n1
-    if n1 < 2 or n2 < 2 or n1 * n2 != n:
-        return rfft(x)
-    lead = x.shape[:-1]
-    hi = jax.lax.Precision.HIGHEST
-    d1r, d1i, twr, twi, d2r, d2i, k2max = _rfft_matmul_tables(n, n1)
-    x2 = x.astype(jnp.float32).reshape(lead + (n1, n2))
-    # Step 1: A[k1, j2] = sum_j1 x[j1*n2 + j2] W_n1^{j1 k1}  (real input).
-    ar = jnp.einsum("ki,...ij->...kj", jnp.asarray(d1r), x2, precision=hi)
-    ai = jnp.einsum("ki,...ij->...kj", jnp.asarray(d1i), x2, precision=hi)
-    # Step 2: twiddle by W_n^{k1 j2}.
-    br = ar * twr - ai * twi
-    bi = ar * twi + ai * twr
-    # Step 3: row DFT over j2, half-spectrum columns only.
-    cr = (
-        jnp.einsum("...kj,jl->...kl", br, jnp.asarray(d2r), precision=hi)
-        - jnp.einsum("...kj,jl->...kl", bi, jnp.asarray(d2i), precision=hi)
-    )
-    ci = (
-        jnp.einsum("...kj,jl->...kl", br, jnp.asarray(d2i), precision=hi)
-        + jnp.einsum("...kj,jl->...kl", bi, jnp.asarray(d2r), precision=hi)
-    )
-    # Step 4: X[k1 + n1 k2] — interleave and crop to the n//2+1 real bins.
-    out = jnp.swapaxes(cr, -1, -2) + 1j * jnp.swapaxes(ci, -1, -2)
-    return out.reshape(lead + (n1 * k2max,))[..., : n // 2 + 1]
-
-
-@functools.lru_cache(maxsize=None)
-def _rfft_untwiddle(n: int) -> np.ndarray:
-    # e^{-2j pi k / n} for k = 0..n/2 (bin count of the real spectrum).
-    k = np.arange(n // 2 + 1)
-    return np.exp(-2j * np.pi * k / n).astype(np.complex64)
-
-
-def rfft(x: jnp.ndarray) -> jnp.ndarray:
-    """Real-input FFT over the last axis; returns the first N//2+1 bins.
-
-    Packs even/odd real samples into one complex sequence of length N/2,
-    runs a half-size complex FFT, and untwiddles — half the flops and
-    bandwidth of a full complex FFT, exploiting conjugate symmetry
-    (the symmetry the reference notes at dsp_core.py:96-98).
-    """
-    n = x.shape[-1]
-    _check_pow2(n)
-    if n == 1:
-        return x.astype(jnp.complex64)
-    xr = x.astype(jnp.float32)
-    z = jnp.asarray(xr[..., 0::2] + 1j * xr[..., 1::2], dtype=jnp.complex64)
-    zf = fft(z)  # (..., n/2)
-    # Z[k] for k = 0..n/2 with wraparound (Z[n/2] == Z[0]).
-    zk = jnp.concatenate([zf, zf[..., :1]], axis=-1)
-    zrev = jnp.conj(zk[..., ::-1])  # conj(Z[n/2 - k])
-    even = 0.5 * (zk + zrev)
-    odd = -0.5j * (zk - zrev)
-    return even + jnp.asarray(_rfft_untwiddle(n)) * odd
-
-
-def _four_step_kernel_n1(n: int) -> int | None:
-    """n1 split for the classic Pallas four-step kernel, or None.
-
-    Keeps n2 a lane multiple; n1 caps at 32, where the kernel's O(n1^2)
-    VPU stage stops paying for itself — N = 8192 therefore runs n1 = 32
-    with n2 = 256 (measured 1.3x over the XLA butterfly on v5e), and
-    larger sizes route to the tall kernel (see _rfft_kernel_plan).
-    """
-    if n < 256 or n > 8192 or (n & (n - 1)) != 0:
-        return None
-    return min(32, n // 128)
-
-
-def _rfft_kernel_plan(n: int):
-    """Route a batched-rfft size to the fastest measured Pallas kernel.
-
-    Returns ('four_step', n1) | ('tall', (row_tile, n2)) | None.  Measured
-    on v5e (bf16x3 fast mode, |X| fused) vs the XLA butterfly path:
-    N=2048 2.1x, N=8192 1.3x (four-step); N=16384 2.3x, N=32768 1.9x
-    (tall — both DFT stages on the MXU, rfft.py:_four_step_tall_kernel).
-    65536+ (long spectrogram windows) run the tall kernel at row_tile=1
-    with ever-larger splits, raising the scoped-VMEM cap and thinning the
-    DFT tables to exact bf16 hi/lo pairs as sizes grow.  Measured on v5e
-    (fast mode, |X| fused, 4-5e-6 rel; round-4 numbers from
-    scripts/rfft_sweep.py):
-    N=65536 0.107 ms/16 rows = 5.6x the XLA butterfly; N=131072 0.234 ms/
-    16 rows = 6.1x; N=262144 (balanced 512x512, 24 MB VMEM cap) 0.298 ms/
-    8 rows = 20.4x; N=524288 (n1=1024 with bf16-pair D1, 48 MB cap)
-    0.429 ms/4 rows = 26.7x.  N=1048576 runs the round-5 HBM-staged
-    two-level kernel (numbers in the routing branch below); 2097152+
-    falls back to the butterfly (compile-bound — see the branch comment).
-    """
-    n1 = _four_step_kernel_n1(n)
-    if n1 is not None:
-        return ("four_step", n1)
-    if n in (16384, 32768) and (n & (n - 1)) == 0:
-        return ("tall", (16 if n == 16384 else 8, 128))
-    if n == 65536:
-        return ("tall", (1, 128))     # n1 = 512
-    if n == 131072:
-        return ("tall", (1, 256))     # n1 = 512, (256,256) row-DFT table
-    if n == 262144:
-        return ("tall", (1, 512))     # n1 = n2 = 512, balanced split
-    if n == 524288:
-        return ("tall", (1, 512))     # n1 = 1024: bf16-pair D1, 48 MB VMEM
-    if n == 1048576:
-        # HBM-staged two-level four-step (kernels/rfft.py round-5 section):
-        # the intermediate B stages through HBM between two tiled passes,
-        # so VMEM holds only one (512, n1) tile + the bf16-pair tables.
-        # Measured at N=1048576 (scripts/rfft_sweep.py round 5): 0.533 ms
-        # /2 rows vs 19.81 ms XLA butterfly = 37.2x, rel 5.8e-6.
-        return ("two_level", None)
-    return None
-
-
-def _rfft_kernel_dispatch(x: jnp.ndarray, plan, magnitude: bool, fast: bool):
-    from ..kernels.rfft import (
-        rfft_pallas_four_step, rfft_pallas_four_step_tall,
-        rfft_pallas_two_level,
-    )
-
-    prec = "fast" if fast else jax.lax.Precision.HIGHEST
-    kind, arg = plan
-    if kind == "four_step":
-        return rfft_pallas_four_step(x, n1=arg, magnitude=magnitude,
-                                     precision=prec)
-    if kind == "two_level":
-        return rfft_pallas_two_level(x, magnitude=magnitude, precision=prec)
-    rt, n2 = arg
-    return rfft_pallas_four_step_tall(x, row_tile=rt, n2=n2,
-                                      magnitude=magnitude, precision=prec)
-
-
-def rfft_magnitude(
-    x: jnp.ndarray, engine: str = "auto", fast: bool = True
-) -> jnp.ndarray:
-    """|rfft(x)| — the spectrum op's workhorse.
-
-    ``engine``: 'auto' uses the fastest Pallas kernel (|X| fused) on TPU
-    for supported sizes, else the XLA butterfly path; 'jnp' forces the
-    butterfly; 'pallas' forces a kernel (raising for unsupported sizes).
-    ``fast`` (kernel path only): bf16x3 matmuls — reference-grade ~4e-6
-    accuracy at half the MXU passes; False pins HIGHEST (~1e-7).
-    """
-    plan = _rfft_kernel_plan(x.shape[-1])
-    if engine == "pallas" and plan is None:
-        raise ValueError(
-            f"engine='pallas' requires a power-of-two N in [256, 1048576], "
-            f"got {x.shape[-1]}"
-        )
-    use_kernel = engine == "pallas" or (
-        engine == "auto" and plan is not None
-        and jax.default_backend() == "tpu"
-    )
-    if use_kernel:
-        return _rfft_kernel_dispatch(x, plan, True, fast)
-    return jnp.abs(rfft(x))
+def rfft_magnitude(x: jnp.ndarray) -> jnp.ndarray:
+    """|rfft(x)| over the last axis — the spectrum ops' workhorse: bins
+    0..N//2 of the reference's spectrum math (dsp_core.py:41-66, 96-98)."""
+    return jnp.abs(jnp.fft.rfft(x.astype(jnp.float32), axis=-1))

@@ -3,7 +3,7 @@
 This module is the framework's ground truth.  It executes the exact math of
 the reference pipeline (/root/reference/modules/dsp_core.py) sequentially in
 numpy/scipy — float64 filters, full-rate convolution, sequential ``lfilter``
-recurrences — so every TPU op and Pallas kernel can be scored against it
+recurrences — so every device op can be scored against it
 (target: >= 60 dB SNR, BASELINE.json north_star).
 
 Numerical notes:

@@ -1,13 +1,14 @@
 """Multi-host (multi-process) execution support.
 
-The reference is single-process (SURVEY.md §2.4); the TPU build targets pod
-slices where each host drives its local chips and JAX's runtime links them
-(`jax.distributed`).  Design rules for this workload:
+The reference is single-process (SURVEY.md §2.4); several hosts each drive
+their local cards and JAX's runtime links them (`jax.distributed`).  Design
+rules for this workload:
 
 * The ``block`` (time) axis carries the halo/carry collectives — lay it
-  along intra-slice ICI (a host's local devices are contiguous on it) so
-  `ppermute`/`all_gather` traffic never rides DCN.  With B block-shards per
-  host, only the two host-boundary halos per step cross DCN.
+  along a host's local devices (contiguous on it) so `ppermute` /
+  `all_gather` traffic stays on the host's card-to-card links.  With B
+  block-shards per host, only the two host-boundary halos per step cross
+  the network between hosts.
 * The ``channel`` axis has zero cross-device math, so it can span hosts
   freely — put the host dimension there when channels >= hosts.
 
@@ -39,8 +40,8 @@ def initialize(
 ) -> None:
     """Join the distributed runtime (no-op when already initialized).
 
-    On TPU pods with standard env (TPU_WORKER_HOSTNAMES etc.) all arguments
-    are auto-detected; pass them explicitly for manual/CPU clusters.
+    Pass coordinator_address (``host:port``), num_processes and process_id
+    explicitly unless the cluster environment provides them.
     """
     try:
         jax.distributed.initialize(

@@ -4,12 +4,13 @@ The workload's natural parallel axes (SURVEY.md §2.4):
   * ``channel`` — independent audio channels: pure data parallelism, no
     cross-device math.
   * ``block``   — contiguous time spans: this domain's sequence parallelism.
-    FIR overlap-save halos and IIR state carries cross these boundaries over
-    ICI collectives (ppermute / all_gather).
+    FIR overlap-save halos and IIR state carries cross these boundaries as
+    collectives (ppermute / all_gather).
 
-On multi-host slices lay ``block`` along the fastest (intra-slice ICI) mesh
-dimension so halo/carry traffic never rides DCN; ``channel`` traffic is nil,
-so it can span hosts freely.
+The cards of one host reach each other all to all at one rate, so the mesh
+follows the algorithm alone.  Across hosts, keep ``block`` within a host so
+halo/carry traffic stays on the card-to-card links; ``channel`` traffic is
+nil, so it can span hosts freely.
 """
 from __future__ import annotations
 

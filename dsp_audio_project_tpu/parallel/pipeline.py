@@ -1,6 +1,6 @@
 """Sharded SRC -> EQ pipeline over a (channel, block) mesh.
 
-This is the centerpiece of the TPU build (SURVEY.md §5 "long-context"): the
+Long-form and multichannel scale-out (SURVEY.md §5 "long-context"): the
 reference processes a whole signal in one serial pass on one CPU
 (app.py:162-167); here multichannel long-form audio shards across devices
 with two — and only two — cross-device exchanges per step:
@@ -34,6 +34,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax import shard_map
+from jax.experimental.layout import Format, Layout
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..config import PipelineConfig, SRCConfig
@@ -41,6 +42,7 @@ from ..design.biquad import BlockOperators
 from ..ops import eq as eq_ops
 from ..ops import src as src_ops
 from .mesh import BLOCK_AXIS, CHANNEL_AXIS
+from ..routing import choose_route
 from ..utils.precision import einsum_f32
 
 
@@ -58,11 +60,12 @@ class ShardPlan:
     halo_left: int
     halo_right: int
     iir_block: int         # IIR block length used inside shards
+    route: str             # routing.choose_route's answer: cat | frames | flat
 
 
 def _plan_shards(
     n: int, c: int, mesh_channel: int, mesh_block: int,
-    src_cfg: SRCConfig, iir_block_hint: int, fused: bool = False,
+    src_cfg: SRCConfig, iir_block_hint: int, route: str,
 ) -> Tuple[ShardPlan, src_ops.PolyphasePlan | None]:
     if src_cfg.bypass:
         # Identity SRC: no filter, no halo — shards carry raw samples and
@@ -78,35 +81,26 @@ def _plan_shards(
     # factor: block_operators halves its unroll until it divides the block,
     # and an odd block (e.g. P=3 with the default 8192 hint -> 8193) would
     # collapse unroll to 1 and build a (G*d)^2 Toeplitz in the gigabytes.
-    # The fused path pins fpb = 128 — the same EQ geometry as the unsharded
-    # equalize_frames (groups_per_block = 128).
-    if fused:
-        fpb = 128
+    # The frame-major routes pin fpb = FRAME_GRANULE — the same EQ geometry
+    # as the unsharded equalize_frames (groups_per_block = FRAME_GRANULE).
+    if route != "flat":
+        fpb = src_ops.FRAME_GRANULE
     else:
         fpb = max(1, -(-iir_block_hint // Pcls))
         fpb = -(-fpb // 16) * 16
     iir_block = fpb * Pcls
 
-    # Fused shards round frames_local to the class kernels' 1024-frame
-    # granule: the kernel pads its output grid to that multiple anyway, so
-    # this costs no extra kernel work — and it removes the frames crop,
-    # which XLA materialized as a full-size slice copy (~0.44 ms on
-    # 8ch x 60 s, round 4).  The pad frames land in the LAST shard (global
-    # signal tail), so cross-shard carries stay exact.
-    granule = 1024 if fused else fpb
-    granule = -(-granule // fpb) * fpb
-    frames_total = (
-        -(-n // (s * mesh_block * granule)) * granule * mesh_block
-    )
+    # Every shard holds a whole number of EQ blocks.  The pad frames land
+    # in the LAST shard (global signal tail), so cross-shard carries stay
+    # exact.
+    frames_total = -(-n // (s * mesh_block * fpb)) * fpb * mesh_block
     frames_local = frames_total // mesh_block
     n_in_local = frames_local * s
     n_out_local = frames_local * Pcls
 
     # With a single block-shard there are no neighbors: the halo is pure
-    # zero-extension, which the frame kernels' own padding already provides.
-    # Skipping it statically removes a full-signal concat (XLA materializes
-    # [left | x | right] as slice + dynamic-update-slice passes — measured
-    # ~0.8 ms on 8ch x 60 s, round 4).
+    # zero-extension, which resample_frames' own padding already provides.
+    # Skipping it statically removes a full-signal concat.
     halo_left = plan.halo_left if plan is not None and mesh_block > 1 else 0
     halo_right = plan.halo_right if plan is not None and mesh_block > 1 else 0
     if max(halo_left, halo_right) > n_in_local and mesh_block > 1:
@@ -126,6 +120,7 @@ def _plan_shards(
         halo_left=halo_left,
         halo_right=halo_right,
         iir_block=iir_block,
+        route=route,
     )
     return sp, plan
 
@@ -154,89 +149,19 @@ def _halo_extend(x_loc: jnp.ndarray, sp: ShardPlan) -> jnp.ndarray:
     return jnp.concatenate(parts, axis=-1) if len(parts) > 1 else x_loc
 
 
-def _local_resample(
-    x_loc: jnp.ndarray, plan: src_ops.PolyphasePlan, sp: ShardPlan
-) -> jnp.ndarray:
-    """Shard-local polyphase frames matmul with ppermute halo exchange."""
-    hl = sp.halo_left
-    x_ext = _halo_extend(x_loc, sp)
-
-    if plan.s >= 8:
-        # Shifted-matmul formulation (shared with ops/src): frame 0's
-        # window starts at index lo + hl of the halo-extended signal
-        # (shifted_frames_matmul zero-extends both edges itself, which is
-        # exactly the single-block-shard case where sp's halos are 0).
-        classes = src_ops.shifted_frames_matmul(
-            x_ext, plan, sp.frames_local, -(plan.lo + hl)
-        )
-    else:
-        off = plan.lo + hl
-        k = np.arange(sp.frames_local, dtype=np.int32)[:, None]
-        w = np.arange(plan.W, dtype=np.int32)[None, :]
-        # Gather indices must stay in-bounds: zero-extend the edges the
-        # (possibly absent, mesh_block == 1) halos would have covered.
-        pad_l = max(0, -off)
-        max_idx = (sp.frames_local - 1) * plan.s + plan.W - 1 + off
-        pad_r = max(0, max_idx + 1 + pad_l - (x_ext.shape[-1] + pad_l))
-        if pad_l or pad_r:
-            x_ext = jnp.pad(
-                x_ext, [(0, 0)] * (x_ext.ndim - 1) + [(pad_l, pad_r)]
-            )
-        idx = jnp.asarray(k * plan.s + w + off + pad_l)
-        frames = jnp.take(x_ext, idx, axis=-1)  # (..., K, W)
-        g_mat = jnp.asarray(plan.G, dtype=jnp.float32)
-        classes = einsum_f32("...kw,wp->...kp", frames, g_mat)
-    return classes.reshape(x_loc.shape[:-1] + (sp.n_out_local,))
-
-
-def _local_resample_shear(
+def _local_frames(
     x_loc: jnp.ndarray, plan: src_ops.PolyphasePlan, sp: ShardPlan,
-    interpret: bool, fast: bool = False,
+    op=None, fast: bool = False,
 ) -> jnp.ndarray:
-    """Shard-local shear FIR kernel -> frames (..., frames_local, P).
-
-    Same halo exchange as _local_resample; the Pallas kernel consumes the
-    halo-extended flat signal directly (pad_left = -(lo + halo_left), i.e.
-    frame 0's window starts at real neighbor data instead of zero padding),
-    so the sharded fused path has no HBM lane retile either.
-    """
-    import jax as _jax
-
-    from ..kernels import fir_frames
-
-    x_ext = _halo_extend(x_loc, sp)
-    return fir_frames(
-        x_ext.astype(jnp.float32), plan, sp.n_out_local,
-        num_frames=sp.frames_local,
-        pad_left=-(plan.lo + sp.halo_left),
-        precision="fast" if fast else _jax.lax.Precision.HIGHEST,
-        interpret=interpret,
-    )
-
-
-def _local_resample_cat(
-    x_loc: jnp.ndarray, plan: src_ops.PolyphasePlan, sp: ShardPlan,
-    interpret: bool, fast: bool, w_cat: np.ndarray,
-):
-    """Shard-local EQ-fused cat kernel: (y0 frames, packed inj).
-
-    Same halo handling as _local_resample_shear; the rect cat kernel
-    (kernels/fir_class) emits the EQ's [y0 | inj] directly so the frames
-    tensor never round-trips HBM inside the shard.  frames_local is a
-    1024-granule multiple (=_plan_shards fused), so the kernel grid emits
-    exactly frames_local rows — no crop.
-    """
-    import jax as _jax
-
-    from ..kernels.fir_class import polyphase_fir_class_rect_cat
-
-    x_ext = _halo_extend(x_loc, sp)
-    return polyphase_fir_class_rect_cat(
-        x_ext.astype(jnp.float32), plan, sp.n_out_local, w_cat,
-        num_frames=sp.frames_local,
-        pad_left=-(plan.lo + sp.halo_left),
-        precision="fast" if fast else _jax.lax.Precision.HIGHEST,
-        interpret=interpret,
+    """Shard-local polyphase frames (..., frames_local, V) after the
+    ppermute halo exchange: frame 0's window starts at index lo + hl of the
+    halo-extended signal (resample_frames zero-extends both edges itself,
+    which is exactly the single-block-shard case where sp's halos are 0).
+    ``op`` is the cat route's folded operator (default plan.G)."""
+    x_ext = _halo_extend(x_loc.astype(jnp.float32), sp)
+    return src_ops.resample_frames(
+        x_ext, plan, sp.n_out_local, op=op, fast=fast,
+        num_frames=sp.frames_local, pad_left=-(plan.lo + sp.halo_left),
     )
 
 
@@ -276,57 +201,31 @@ def build_sharded_pipeline(
     fs: int,
     n: int,
     channels: int,
-    fused: bool | None = None,
-    cat: bool = False,
+    need_y: bool = False,
 ):
     """Compile a sharded processor for fixed (fs, N, C).
 
-    Returns ``(fn, shard_plan)`` where ``fn(x_padded) -> z_padded`` is jitted
-    over the mesh with x of shape (c_pad, mesh_block * n_in_local); use
+    Returns ``(fn, shard_plan)`` where ``fn`` is jitted over the mesh and
+    takes x of shape (c_pad, mesh_block * n_in_local); it returns z_padded
+    on the cat route and (z_padded, y_padded) on the others.  Use
     ``run_sharded`` for the pad/crop wrapping.
 
-    ``fused`` selects the frame-major fast path inside each shard (shear
-    FIR Pallas kernel -> grouped EQ at unroll=P, no lane retiles — the
-    sharded twin of AudioPipeline.jit_forward_frames).  None = auto: on
-    when the plan supports it and the backend runs Pallas (TPU, or
-    interpret mode anywhere).
+    Each shard runs the route routing.choose_route picks
+    (``shard_plan.route``): 'cat' (EQ-fused SRC, z only) unless
+    ``need_y``; else 'frames' (frame-major SRC -> grouped EQ at
+    unroll = P, the sharded twin of AudioPipeline.jit_forward_frames);
+    'flat' for narrow strides and a bypassed SRC.
     """
     mesh_channel = mesh.shape[CHANNEL_AXIS]
     mesh_block = mesh.shape[BLOCK_AXIS]
     src_cfg, eq_cfg = config.src, config.eq
+    kc = config.kernels
 
-    # The fused decision shapes the shard plan (EQ geometry + the 1024-frame
-    # granule), so resolve it before planning.
-    plan_probe = (
-        None if src_cfg.bypass
-        else src_ops.make_plan(src_cfg.L, src_cfg.M, src_cfg.taps_rule_factor)
-    )
-    if fused is None:
-        fused = (
-            plan_probe is not None
-            and plan_probe.s >= 8
-            and (config.kernels.interpret or jax.default_backend() == "tpu")
-        )
-    if fused and (plan_probe is None or plan_probe.s < 8):
-        raise ValueError("fused sharded path requires SRC with stride s >= 8")
-    if cat:
-        # EQ-fused cat shards (round 5): z-only output (the y intermediate
-        # is never materialized — use fused=True when you need it).
-        from ..kernels.fir_class import rect_supported
-
-        kc = config.kernels
-        if not fused:
-            raise ValueError("cat sharding implies the fused frame path")
-        if plan_probe is None or not rect_supported(plan_probe):
-            raise ValueError("cat sharding needs the rect kernel geometry")
-        if bool(kc.src_fast) != bool(kc.eq_fast):
-            raise ValueError(
-                "cat sharding folds both stages into one kernel precision; "
-                "set src_fast == eq_fast"
-            )
+    # The route shapes the shard plan (EQ geometry), so resolve it first.
+    route = choose_route(config, n, fs, need_y=need_y)
+    fused = route != "flat"
     sp, plan = _plan_shards(
-        n, channels, mesh_channel, mesh_block, src_cfg,
-        config.kernels.iir_block, fused=bool(fused),
+        n, channels, mesh_channel, mesh_block, src_cfg, kc.iir_block, route,
     )
     fs_out = src_cfg.output_rate(fs)
     bands = eq_cfg.active_bands(fs_out)
@@ -363,82 +262,53 @@ def build_sharded_pipeline(
         sigma0 = _cross_shard_sigma(e_shard, ops, sp.n_out_local)
         return sigma_local + einsum_f32("kij,...j->...ki", pows_k_dev, sigma0)
 
+    def _eq_finish(y0, s_in, e):
+        sigma = _shard_sigma(e, eq_ops._carry_states(e, ops))
+        return eq_ops._grouped_finish(y0, s_in, sigma, ops)
+
     def local_fn(x_loc):
         # x_loc: (C_local, n_in_local)
         if plan is None:  # SRC bypass: identity, no halo, zero FIR work
-            y_loc = x_loc.astype(jnp.float32)
+            y_fr = x_loc.astype(jnp.float32)[..., None]
         else:
-            y_loc = _local_resample(x_loc.astype(jnp.float32), plan, sp)
-        if not eq_active:
-            z_loc = jnp.clip(y_loc, -1.0, 1.0) if not eq_cfg.bypass else y_loc
-            return z_loc, y_loc
-        # ONE local block pass: zero-init states + local carries; the
-        # cross-shard state folds into the group-entry states (no second
-        # full-width pass).  _grouped_parts shares the weight-concat
-        # matmul in fast mode (frames read once).
-        U = ops.unroll
-        x_g = y_loc.reshape(
-            y_loc.shape[:-1] + (K_loc, ops.block // U, U)
-        )
-        y0, s_in, e = eq_ops._grouped_parts(
-            x_g, ops, fast=config.kernels.eq_fast
-        )
-        sigma_local = eq_ops._carry_states(e, ops)          # (..., K, d)
-        sigma = _shard_sigma(e, sigma_local)
-        z_loc = eq_ops._grouped_finish(y0, s_in, sigma, ops).reshape(
-            y_loc.shape
-        )
-        return jnp.clip(z_loc, -1.0, 1.0), y_loc
-
-    def local_fn_fused(x_loc):
-        # Frame-major twin: shear FIR frames feed the EQ at unroll = P —
-        # the flat views below are free leading-axis regroups.
-        y_fr = _local_resample_shear(
-            x_loc.astype(jnp.float32), plan, sp, config.kernels.interpret,
-            fast=config.kernels.src_fast,
-        )                                                   # (C, F_loc, P)
+            # The flat route's SRC runs at full f32, as ops/src.resample.
+            y_fr = _local_frames(x_loc, plan, sp,
+                                 fast=fused and kc.src_fast)
         lead = y_fr.shape[:-2]
         y_loc = y_fr.reshape(lead + (sp.n_out_local,))
         if not eq_active:
             z_loc = jnp.clip(y_loc, -1.0, 1.0) if not eq_cfg.bypass else y_loc
             return z_loc, y_loc
-        fpb = ops.block // plan.P
-        x_g = y_fr.reshape(lead + (K_loc, fpb, plan.P))
-        y0, s_in, e = eq_ops._grouped_parts(
-            x_g, ops, fast=config.kernels.eq_fast
-        )
-        sigma_local = eq_ops._carry_states(e, ops)          # (..., K, d)
-        sigma = _shard_sigma(e, sigma_local)
-        z = eq_ops._grouped_finish(y0, s_in, sigma, ops)
+        # ONE local block pass: zero-init states + local carries; the
+        # cross-shard state folds into the group-entry states (no second
+        # full-width pass).  Fused: frames regroup along the leading axis
+        # only (U = P); flat: the flat signal regroups at ops.unroll.
+        U = ops.unroll
+        x_g = y_loc.reshape(lead + (K_loc, ops.block // U, U))
+        y0, s_in, e = eq_ops._grouped_parts(x_g, ops, fast=kc.eq_fast)
+        z = _eq_finish(y0, s_in, e)
         return jnp.clip(z.reshape(y_loc.shape), -1.0, 1.0), y_loc
 
-    if cat:
-        if not eq_active:
-            raise ValueError("cat sharding requires an active EQ")
-        from ..kernels.fir_class import DPAD
-
-        w_cat_np = eq_ops.eq_cat_weights(ops)
-        fpb_cat = ops.block // plan.P
+    spec = P(CHANNEL_AXIS, BLOCK_AXIS)
+    if route == "cat":
+        fold = src_ops.fold_operator(plan, eq_ops.eq_cat_weights(ops))
+        fpb = ops.block // plan.P
 
         def local_fn_cat(x_loc):
-            y0f, ip = _local_resample_cat(
-                x_loc, plan, sp, config.kernels.interpret,
-                config.kernels.src_fast, w_cat_np,
-            )
+            cat = _local_frames(x_loc, plan, sp, op=fold,
+                                fast=kc.src_fast and kc.eq_fast)
+            y0f, inj = cat[..., : plan.P], cat[..., plan.P :]
             lead = y0f.shape[:-2]
-            x_g = y0f.reshape(lead + (K_loc, fpb_cat, plan.P))
-            ipg = ip.reshape(lead + (K_loc, fpb_cat * DPAD))
-            y0, s_in, e = eq_ops._grouped_parts_packed(
-                x_g, ipg, ops, fast=config.kernels.eq_fast
+            d = inj.shape[-1]
+            s_in, e = eq_ops._state_solve(
+                inj.reshape(lead + (K_loc, fpb, d)), ops.group_toeplitz,
+                fast=kc.eq_fast,
             )
-            sigma_local = eq_ops._carry_states(e, ops)
-            sigma = _shard_sigma(e, sigma_local)
-            z = eq_ops._grouped_finish(y0, s_in, sigma, ops)
+            z = _eq_finish(y0f.reshape(lead + (K_loc, fpb, plan.P)), s_in, e)
             return jnp.clip(
                 z.reshape(lead + (sp.n_out_local,)), -1.0, 1.0
             )
 
-        spec = P(CHANNEL_AXIS, BLOCK_AXIS)
         sharded = shard_map(
             local_fn_cat, mesh=mesh,
             in_specs=(spec,), out_specs=spec,
@@ -446,9 +316,8 @@ def build_sharded_pipeline(
         )
         return _auto_layout_jit(sharded, 1), sp
 
-    spec = P(CHANNEL_AXIS, BLOCK_AXIS)
     sharded = shard_map(
-        local_fn_fused if fused else local_fn, mesh=mesh,
+        local_fn, mesh=mesh,
         in_specs=(spec,), out_specs=(spec, spec),
         check_vma=False,
     )
@@ -456,19 +325,13 @@ def build_sharded_pipeline(
 
 
 def _auto_layout_jit(fun, n_out: int):
-    """jit with AUTO output layouts (streaming.py's measured fix: the
-    default layout normalization copies the full z output per call; XLA's
-    native layout fetches bit-identically without it)."""
-    try:
-        from jax.experimental.layout import Format, Layout
-
-        shardings = (
-            Format(Layout.AUTO) if n_out == 1
-            else tuple(Format(Layout.AUTO) for _ in range(n_out))
-        )
-        return jax.jit(fun, out_shardings=shardings)
-    except Exception:  # pragma: no cover - older jax
-        return jax.jit(fun)
+    """jit with AUTO output layouts: the caller fetches the outputs, and
+    XLA's native layout fetches bit-identically without a normalizing
+    copy of the full output."""
+    auto = Format(Layout.AUTO)
+    return jax.jit(
+        fun, out_shardings=auto if n_out == 1 else (auto,) * n_out
+    )
 
 
 _sharded_cache: dict = {}
@@ -479,14 +342,14 @@ def run_sharded(
     fs: int,
     config: PipelineConfig,
     mesh: Mesh,
-    fused: bool | None = None,
-    cat: bool = False,
-) -> Tuple[jax.Array, jax.Array, int, ShardPlan]:
+    need_y: bool = False,
+) -> Tuple[jax.Array, jax.Array | None, int, ShardPlan]:
     """Pad, shard, process, crop: the host-facing sharded entry point.
 
     ``x``: (C, N) float32.  Returns (z, y, fs_out, plan) with z cropped to
-    the true (C, n_out).  With ``cat=True`` the EQ-fused cat shards run
-    (fastest serving path; y is not materialized — returned as None).
+    the true (C, n_out).  y is None on the cat route, which never forms
+    it; pass ``need_y`` when the caller needs it (see
+    build_sharded_pipeline).
     """
     if x.ndim == 1:
         x = x[None, :]
@@ -494,12 +357,10 @@ def run_sharded(
     # One compile per (mesh, config, geometry): repeated calls reuse the
     # jitted executable (a fresh build per call would retrace every time —
     # Mesh, PipelineConfig and the ints are all hashable).
-    key = (mesh, config, fs, n, c, fused, cat)
+    key = (mesh, config, fs, n, c, need_y)
     hit = _sharded_cache.get(key)
     if hit is None:
-        hit = build_sharded_pipeline(
-            mesh, config, fs, n, c, fused=(True if cat else fused), cat=cat
-        )
+        hit = build_sharded_pipeline(mesh, config, fs, n, c, need_y=need_y)
         _sharded_cache[key] = hit
     fn, sp = hit
     mesh_block = mesh.shape[BLOCK_AXIS]
@@ -509,7 +370,7 @@ def run_sharded(
     sharding = NamedSharding(mesh, P(CHANNEL_AXIS, BLOCK_AXIS))
     xd = jax.device_put(xp, sharding)
     fs_out = config.src.output_rate(fs)
-    if cat:
+    if sp.route == "cat":
         z = fn(xd)
         return z[:c, : sp.n_out], None, fs_out, sp
     z, y = fn(xd)

@@ -31,6 +31,7 @@ import numpy as np
 from .config import PipelineConfig
 from .ops import eq as eq_ops
 from .ops.src import PolyphasePlan, _resample_frames, make_plan
+from .routing import choose_route
 
 
 @dataclasses.dataclass
@@ -180,7 +181,7 @@ class StreamProcessor:
             n_out = -(-src.num_taps // src.M)
             y = np.asarray(
                 _resample_frames(jnp.asarray(self._src_carry), short_plan,
-                                 n_total, n_out)
+                                 n_out)
             )
             self._frames_done = -(-n_out // short_plan.P)
             return y
@@ -296,13 +297,13 @@ class ShardedStreamProcessor:
     One compiled executable serves the whole stream regardless of chunk
     sizes (chunks buffer to fixed super-steps — the serving-friendly shape).
 
-    Round-4 serving upgrades:
+    Serving features:
 
-    * **Fused super-steps** (``fused=None`` auto-selects on TPU or in
-      interpret mode): the per-shard SRC runs the production Pallas
-      class/shear kernel and the EQ consumes its frames at unroll = P —
-      no lane retile; fused steps emit frame-major output whose flat view
-      is free on host.
+    * **Routes** (routing.choose_route; a stream emits z only, so it
+      never needs y): on the frame-major routes the per-shard SRC emits
+      frames (ops/src.resample_frames) and the EQ consumes them at
+      unroll = P; the flat view is free on host.  With an active EQ the
+      cat route folds the EQ's first matmul into the SRC operator.
     * **Device-resident carry**: the EQ state never round-trips to host
       between super-steps; ``process``/``flush`` dispatch every ready step
       back to back and fetch afterwards, so step k+1's upload and launch
@@ -323,11 +324,8 @@ class ShardedStreamProcessor:
         channels: int,
         frames_per_shard: Optional[int] = None,
         state: Optional[StreamState] = None,
-        fused: Optional[bool] = None,
         gains_db=None,
     ):
-        import jax
-
         from .parallel.mesh import BLOCK_AXIS, CHANNEL_AXIS
 
         self.config = config
@@ -350,55 +348,27 @@ class ShardedStreamProcessor:
         self._lo = p.lo if p else 0
         self._hr = max(0, self._W - self._s)
 
-        # Fused super-step: the per-shard SRC runs the production Pallas
-        # class/shear kernel (kernels.fir_frames) and the EQ consumes its
-        # frames directly at unroll = P — the streaming twin of
-        # parallel/pipeline.build_sharded_pipeline(fused=True).  Same auto
-        # rule: on where the plan supports it and Pallas can run (TPU, or
-        # interpret mode anywhere).  Off (the XLA shifted-matmul path), the
-        # EQ reads the FLAT per-shard output at the standard unroll 128.
-        if fused is None:
-            fused = (
-                p is not None
-                and p.s >= 8
-                and (config.kernels.interpret
-                     or jax.default_backend() == "tpu")
-            )
-        if fused and (p is None or p.s < 8):
-            raise ValueError("fused streaming requires SRC with stride s >= 8")
-        self._fused = bool(fused)
+        # The route: frame-major super-steps (the per-shard SRC emits
+        # frames the EQ consumes at unroll = P) unless it is 'flat', where
+        # the EQ reads the flat per-shard output at the standard unroll
+        # 128.  With an active EQ the frame-major step is the cat route:
+        # the SRC operator carries the EQ's first matmul
+        # (ops/src.fold_operator), so each shard emits [y0 | inj] and the
+        # frames tensor never forms.  Static gains fold on the host;
+        # dynamic gains (every band active, whatever its gain) fold on
+        # device per gain change.
+        self._dynamic = gains_db is not None
+        self._route = choose_route(config, fs=self.fs,
+                                   dynamic=self._dynamic)
+        self._fused = self._route != "flat"
 
         bands = config.eq.active_bands(self.fs_out)
-        self._dynamic = gains_db is not None
         self._eq_active = self._dynamic or (
             (not config.eq.bypass) and bool(bands)
         )
-        # EQ-fused cat super-steps (round 5): the rect FIR kernel emits
-        # [y0 | packed inj] per shard, skipping the frames HBM round trip
-        # inside every super-step (kernels/fir_class cat section).  Needs
-        # static gains (the fold bakes the EQ weights into the operator
-        # banks), an active EQ, the rect geometry, and one kernel
-        # precision covering both folded stages.
-        from .kernels.fir_class import rect_supported
-
-        cat_ok = (
-            self._fused and self._eq_active
-            and p is not None and rect_supported(p)
-            and bool(config.kernels.src_fast) == bool(config.kernels.eq_fast)
-        )
+        cat_ok = self._route == "cat"
         fpb = max(1, -(-config.kernels.iir_block // self._P))
         fpb = -(-fpb // 16) * 16
-        if cat_ok:
-            # The packed-inj layout groups frames by the kernel's 128-frame
-            # supers; align the EQ block to a multiple of that — but only
-            # when the caller's explicit frames_per_shard stays a multiple
-            # of it (a pre-round-5 value like 64 must keep working: cat
-            # simply stays off there).
-            fpb_cat = max(128, -(-fpb // 128) * 128)
-            if frames_per_shard is None or frames_per_shard % fpb_cat == 0:
-                fpb = fpb_cat
-            else:
-                cat_ok = False
         self._fpb = fpb
         # Requested unroll: P on the fused frame-major path (frames feed the
         # EQ directly), 128 on the flat path.  The static builder halves it
@@ -417,13 +387,9 @@ class ShardedStreamProcessor:
         self._fl = frames_per_shard
         self._K_loc = self._fl // fpb
         self._F_sup = self._nb * self._fl
-        # Sub-1024-frame steps would pay the kernel's padded grid (it
-        # computes ceil(fl/1024)*1024 frames); keep them on the unfused EQ.
-        # Dynamic mode runs the same fused kernel with device-rebuilt
-        # banks (ops/eq_dynamic.build_cat_banks_dyn) as a traced input.
-        self._cat = cat_ok and not self._dynamic and self._fl % 1024 == 0
-        self._cat_dyn = cat_ok and self._dynamic and self._fl % 1024 == 0
-        self._dbanks = None
+        self._cat = cat_ok and not self._dynamic
+        self._cat_dyn = cat_ok and self._dynamic
+        self._dfold = None
 
         if self._dynamic:
             # Dynamic-gains serving mode: the EQ operators are a traced
@@ -503,16 +469,15 @@ class ShardedStreamProcessor:
         if getattr(self, "_cat_dyn", False):
             import jax
 
-            from .ops.eq_dynamic import build_cat_tables_dyn
+            from .ops.eq_dynamic import dyn_cat_weights
+            from .ops.src import fold_operator
 
-            if getattr(self, "_bank_jit", None) is None:
-                kc = self.config.kernels
-                self._bank_jit = jax.jit(
-                    lambda o: build_cat_tables_dyn(
-                        self._plan, o, fast=bool(kc.src_fast)
-                    )
+            if getattr(self, "_fold_jit", None) is None:
+                plan = self._plan
+                self._fold_jit = jax.jit(
+                    lambda o: fold_operator(plan, dyn_cat_weights(o))
                 )
-            self._dbanks = self._bank_jit(dops.ops)
+            self._dfold = self._fold_jit(dops.ops)
         return dops
 
     def set_gains(self, gains_db) -> None:
@@ -562,8 +527,7 @@ class ShardedStreamProcessor:
 
     @staticmethod
     def resume(config: PipelineConfig, mesh, channels: int, data: bytes,
-               frames_per_shard: Optional[int] = None,
-               fused: Optional[bool] = None, gains_db=None,
+               frames_per_shard: Optional[int] = None, gains_db=None,
                ) -> "ShardedStreamProcessor":
         """Rebuild a processor from ``state_bytes`` output.
 
@@ -577,16 +541,18 @@ class ShardedStreamProcessor:
             gains_db = st.gains_db
         return ShardedStreamProcessor(
             config, st.fs, mesh, channels,
-            frames_per_shard=frames_per_shard, state=st, fused=fused,
-            gains_db=gains_db,
+            frames_per_shard=frames_per_shard, state=st, gains_db=gains_db,
         )
 
     # -- device step ---------------------------------------------------------
     def _build_step(self):
         import jax
         from jax import shard_map
+        from jax.experimental.layout import Format, Layout
         from jax.sharding import PartitionSpec as P
 
+        from .ops.eq_dynamic import _dyn_cat_matmul
+        from .ops.src import fold_operator, resample_frames
         from .parallel.mesh import BLOCK_AXIS, CHANNEL_AXIS
         from .utils.precision import einsum_f32
 
@@ -626,18 +592,9 @@ class ShardedStreamProcessor:
                 pk[k_i] = acc
                 acc = acc @ ops.state_corr
             pk_f32 = pk.astype(np.float32)
-        if plan is not None and plan.s < 8:
-            k_idx = np.arange(fl, dtype=np.int32)[:, None]
-            w_idx = np.arange(plan.W, dtype=np.int32)[None, :]
-            gather_idx = k_idx * plan.s + w_idx
-
         # With ONE block shard there are no neighbors: the halo is the
         # stream tail, which lives in the SAME host span buffer as x —
         # upload them pre-joined and skip the device-side concat.
-        # (Measured neutral at FL=8192 — XLA had already fused the concat
-        # into the staging pad; the step's visible copy.11 is the z
-        # OUTPUT materialization, ~63 us — but the pre-join drops a
-        # dead upload and a concat from the graph.)
         prejoin = nb == 1 and hr > 0
 
         def extend_halo(x_loc, tail):
@@ -660,51 +617,18 @@ class ShardedStreamProcessor:
             )
             return jnp.concatenate([xf, right], axis=-1)
 
+        # The flat route's SRC runs at full f32, as ops/src.resample.
+        src_fast = kc.src_fast and fused
+        fold_fast = kc.src_fast and kc.eq_fast
         if self._cat:
-            w_cat_np = eq_ops.eq_cat_weights(ops)
+            fold = fold_operator(plan, eq_ops.eq_cat_weights(ops))
 
-        def local_src_cat(x_loc, tail):
-            """Halo + EQ-fused cat SRC: (y0 (C, fl, P), inj (C, fl/128,
-            128*DPAD)) — kernel-grid pad rows cropped (row slices of the
-            kernel-materialized outputs; cheap, layout-aligned)."""
-            from .kernels.fir_class import polyphase_fir_class_rect_cat
-
-            x_ext = extend_halo(x_loc, tail)
-            y0p, ip = polyphase_fir_class_rect_cat(
-                x_ext, plan, fl * P_cls, w_cat_np, num_frames=fl,
-                pad_left=0,
-                precision="fast" if kc.src_fast
-                else jax.lax.Precision.HIGHEST,
-                interpret=kc.interpret,
-            )
-            return y0p[..., :fl, :], ip[..., : fl // 128, :]
-
-        def local_src(x_loc, tail):
-            """Halo exchange + per-shard SRC -> frames (C, fl, P)."""
-            from .ops.src import shifted_frames_matmul
-
-            xf = x_loc.astype(jnp.float32)
-            if plan is None:
-                return xf
-            x_ext = extend_halo(x_loc, tail)
-            if fused:
-                # The production Pallas kernel (class/shear, routed by
-                # kernels.fir_frames).  x_ext index 0 is frame 0's window
-                # start, so pad_left = 0 like the sharded one-shot path.
-                from .kernels import fir_frames
-
-                return fir_frames(
-                    x_ext, plan, fl * P_cls, num_frames=fl, pad_left=0,
-                    precision="fast" if kc.src_fast
-                    else jax.lax.Precision.HIGHEST,
-                    interpret=kc.interpret,
-                )
-            if plan.s >= 8:
-                # x_ext index 0 is frame 0's window start by construction.
-                return shifted_frames_matmul(x_ext, plan, fl, 0)
-            frames = jnp.take(x_ext, jnp.asarray(gather_idx), axis=-1)
-            return einsum_f32(
-                "...kw,wp->...kp", frames, jnp.asarray(plan.G, jnp.float32),
+        def local_src(x_loc, tail, op=None, fast_src=src_fast):
+            """Halo exchange + per-shard SRC -> frames (C, fl, V); x_ext
+            index 0 is frame 0's window start by construction."""
+            return resample_frames(
+                extend_halo(x_loc, tail), plan, fl * P_cls, op=op,
+                fast=fast_src, num_frames=fl, pad_left=0,
             )
 
         def cross_shard(sigma_local, e, sigma_in, W_cross, pow_lo, pow_hi,
@@ -743,7 +667,7 @@ class ShardedStreamProcessor:
             """SRC result -> (C, K_loc, G, U) EQ groups.
 
             Fused: frames (C, fl, P) regroup along the LEADING axis only
-            (U = P, no lane retile).  Flat: (C, fl*P) regroup at U = 128.
+            (U = P, a free reshape).  Flat: (C, fl*P) regroup at U = 128.
             """
             if fused:
                 return y.reshape(y.shape[:-2] + (K_loc, fpb, P_cls))
@@ -756,36 +680,39 @@ class ShardedStreamProcessor:
             """Clip + restore the SRC result's layout (frames or flat)."""
             return jnp.clip(z.reshape(like.shape), -1.0, 1.0)
 
-        def local_fn(x_loc, tail, sigma_in):
-            if self._cat:
-                y, ip = local_src_cat(x_loc, tail)    # y = y0 frames
-                x_g = y.reshape(y.shape[:-2] + (K_loc, fpb, P_cls))
-                from .kernels.fir_class import DPAD
+        def src_groups(x_loc, tail, op=None):
+            """SRC result regrouped for the EQ: (y, x_g (C, K_loc, G, U)),
+            or (y0, inj) groups on the cat route (``op`` = folded
+            operator).  Fused: frames regroup along the leading axis only
+            (U = P); flat: (C, fl*P) regroups at U = 128."""
+            if op is not None:
+                cat = local_src(x_loc, tail, op=op, fast_src=fold_fast)
+                y0, inj = cat[..., :P_cls], cat[..., P_cls:]
+                lead = y0.shape[:-2]
+                return y0, (
+                    y0.reshape(lead + (K_loc, fpb, P_cls)),
+                    inj.reshape(lead + (K_loc, fpb, inj.shape[-1])),
+                )
+            if plan is None:
+                y = x_loc.astype(jnp.float32)
+            else:
+                y = local_src(x_loc, tail)
+                if not fused:
+                    y = y.reshape(x_loc.shape[:-1] + (fl * P_cls,))
+            return y, regroup(y)
 
-                ipg = ip.reshape(
-                    y.shape[:-2] + (K_loc, fpb * DPAD)
-                )
-                y0, s_in, e = eq_ops._grouped_parts_packed(
-                    x_g, ipg, ops, fast=fast
-                )
-                sigma_local = eq_ops._carry_states(e, ops)
-                sigma, sigma_out = cross_shard(
-                    sigma_local, e, sigma_in,
-                    jnp.asarray(weights), jnp.asarray(pows_f32[:nb]),
-                    jnp.asarray(pows_f32[nb]), jnp.asarray(w_out),
-                    jnp.asarray(ops.state_corr, jnp.float32),
-                    jnp.asarray(pk_f32),
-                )
-                z = eq_ops._grouped_finish(y0, s_in, sigma, ops)
-                return finalize(z, y), sigma_out
-            y = local_src(x_loc, tail)           # frames if fused else flat
-            if plan is not None and not fused:
-                y = y.reshape(x_loc.shape[:-1] + (fl * P_cls,))
+        def local_fn(x_loc, tail, sigma_in):
             if not eq_active:
+                y, _ = src_groups(x_loc, tail)
                 z = y if eq_bypass else jnp.clip(y, -1.0, 1.0)
                 return z, sigma_in
-            x_g = regroup(y)
-            y0, s_in, e = eq_ops._grouped_parts(x_g, ops, fast=fast)
+            if self._cat:
+                y, (y0, inj) = src_groups(x_loc, tail, op=fold)
+                s_in, e = eq_ops._state_solve(inj, ops.group_toeplitz,
+                                              fast=fast)
+            else:
+                y, x_g = src_groups(x_loc, tail)
+                y0, s_in, e = eq_ops._grouped_parts(x_g, ops, fast=fast)
             sigma_local = eq_ops._carry_states(e, ops)
             sigma, sigma_out = cross_shard(
                 sigma_local, e, sigma_in,
@@ -797,74 +724,20 @@ class ShardedStreamProcessor:
             z = eq_ops._grouped_finish(y0, s_in, sigma, ops)
             return finalize(z, y), sigma_out
 
-        def local_fn_dyn(x_loc, tail, sigma_in, dops, banks=None):
+        def local_fn_dyn(x_loc, tail, sigma_in, dops, fold_dyn=None):
             """Dynamic-gains step: EQ operators are TRACED inputs, so a
             mid-stream gain swap reuses this compile (see set_gains).
-            With ``banks`` (dynamic-cat mode) the fused kernel emits
-            [y0 | packed inj] directly — same economy as the static cat
-            super-steps."""
+            With ``fold_dyn`` (dynamic-cat mode) the SRC operator carries
+            the EQ's first matmul, folded on device per gain change."""
             od = dops.ops
             f32 = jnp.float32
-            d_dyn = od.group_in.shape[-1]
-            toe_prec = jax.lax.Precision.HIGH if fast else \
-                jax.lax.Precision.HIGHEST
-            if banks is not None:
-                from .kernels.fir_class import (
-                    DPAD, polyphase_fir_class_rect_cat,
-                )
-
-                x_ext = extend_halo(x_loc, tail)
-                y0p, ip = polyphase_fir_class_rect_cat(
-                    x_ext, plan, fl * P_cls, None, banks=banks.banks,
-                    num_frames=fl, pad_left=0,
-                    precision="fast" if kc.src_fast
-                    else jax.lax.Precision.HIGHEST,
-                    interpret=kc.interpret,
-                )
-                y = y0p[..., :fl, :]
-                ipg = ip[..., : fl // 128, :].reshape(
-                    y.shape[:-2] + (K_loc, fpb * DPAD)
-                )
-                x_g = y.reshape(y.shape[:-2] + (K_loc, fpb, P_cls))
-                y0 = x_g
-                G = fpb
-                lead = x_g.shape[:-2]
-                s_tail = jnp.einsum(
-                    "...x,xy->...y", ipg, banks.toe_pad,
-                    precision=toe_prec, preferred_element_type=f32,
-                ).reshape(lead + (G, d_dyn))
+            if fold_dyn is not None:
+                y, (y0, inj) = src_groups(x_loc, tail, op=fold_dyn)
             else:
-                y = local_src(x_loc, tail)
-                if plan is not None and not fused:
-                    y = y.reshape(x_loc.shape[:-1] + (fl * P_cls,))
-                x_g = regroup(y)
-                G = x_g.shape[-2]
-                lead = x_g.shape[:-2]
-                # Grouped state pass (ops/eq._grouped_states with traced
-                # tables; fast mode shares the weight-concat matmul of
-                # _dynamic_grouped).
-                if fast:
-                    w_cat = jnp.concatenate([od.fir_t, od.group_in], axis=1)
-                    cat = jnp.einsum(
-                        "...gu,uv->...gv", x_g, w_cat,
-                        precision=jax.lax.Precision.HIGH,
-                        preferred_element_type=f32,
-                    )
-                    y0 = cat[..., : x_g.shape[-1]]
-                    inj = cat[..., x_g.shape[-1]:]
-                else:
-                    y0 = None
-                    inj = einsum_f32("...gu,ud->...gd", x_g, od.group_in)
-                s_tail = jnp.einsum(
-                    "...x,xy->...y", inj.reshape(lead + (G * d_dyn,)),
-                    od.toe,
-                    precision=toe_prec, preferred_element_type=f32,
-                ).reshape(lead + (G, d_dyn))
-            e = s_tail[..., G - 1, :]
-            s_in = jnp.concatenate(
-                [jnp.zeros(lead + (1, d_dyn), f32),
-                 s_tail[..., : G - 1, :]], axis=-2,
-            )
+                y, x_g = src_groups(x_loc, tail)
+                y0, inj = _dyn_cat_matmul(x_g, od, fast)
+            s_in, e = eq_ops._state_solve(inj, od.toe, fast=fast)
+            d_dyn = e.shape[-1]
             # Local (within-shard) block carry from zero state.
             blead = e.shape[:-2]
             if K_loc == 1:
@@ -886,12 +759,6 @@ class ShardedStreamProcessor:
             s_true = s_in + einsum_f32(
                 "gef,...kf->...kge", od.pows_g, sigma
             )
-            if y0 is None:
-                y0 = jnp.einsum(
-                    "...gu,uv->...gv", x_g, od.fir_t,
-                    precision=jax.lax.Precision.HIGHEST,
-                    preferred_element_type=f32,
-                )
             z = y0 + einsum_f32("...gd,du->...gu", s_true, od.group_out)
             return finalize(z, y), sigma_out
 
@@ -906,8 +773,7 @@ class ShardedStreamProcessor:
         if dynamic:
             if self._cat_dyn:
                 fn = shard_map(
-                    lambda x, t, sg, dp, bk: local_fn_dyn(x, t, sg, dp, bk),
-                    mesh=self.mesh,
+                    local_fn_dyn, mesh=self.mesh,
                     in_specs=(spec_x, spec_rep, spec_rep, P(), P()),
                     out_specs=(spec_z, spec_rep),
                     check_vma=False,
@@ -926,22 +792,10 @@ class ShardedStreamProcessor:
                 out_specs=(spec_z, spec_rep),
                 check_vma=False,
             )
-        # AUTO output layouts: the default layout normalization copies the
-        # full z output every step (~63 us of a 652 us FL=8192 super-step,
-        # round 5); letting XLA keep the fusion's native layout removes it
-        # and the host fetch linearizes either way (bit-identical,
-        # verified).  Falls back to the default when the layout API or the
-        # backend refuses.
-        try:
-            from jax.experimental.layout import Format, Layout
-
-            stepped = jax.jit(
-                fn, out_shardings=(Format(Layout.AUTO), Format(Layout.AUTO))
-            )
-            # Trip compile-time errors now (tiny abstract eval only).
-            return stepped
-        except Exception:  # pragma: no cover - older jax
-            return jax.jit(fn)
+        # AUTO output layouts: the host fetches z, and XLA's native layout
+        # fetches bit-identically without a normalizing copy of z per step.
+        auto = Format(Layout.AUTO)
+        return jax.jit(fn, out_shardings=(auto, auto))
 
     # -- processing ----------------------------------------------------------
     def process(self, chunk: np.ndarray) -> np.ndarray:
@@ -1134,7 +988,7 @@ class ShardedStreamProcessor:
         if self._dynamic:
             if self._cat_dyn:
                 z, sigma_out = self._fn(
-                    x_d, tail_d, self._sigma_dev, self._dops, self._dbanks
+                    x_d, tail_d, self._sigma_dev, self._dops, self._dfold
                 )
             else:
                 z, sigma_out = self._fn(

@@ -1,18 +1,21 @@
-"""Double-float32 ("df32") compensated arithmetic for TPU.
+"""Double-float32 ("df32") compensated arithmetic.
 
-TPU has no hardware float64, but coefficient construction *inside* a traced
-graph (ops/eq_dynamic.py) needs more than float32: the peaking-EQ pole
+The traced programs run in float32 (JAX's 64-bit mode is off), but
+coefficient construction *inside* a traced graph (ops/eq_dynamic.py) needs
+more than float32: the peaking-EQ pole
 geometry amplifies realization rounding by ~1/dist(pole, unit circle), which
 for a 40 Hz band at 44.1 kHz is ~350x.  A df32 value represents a real
 number as an unevaluated sum hi + lo of two float32s (|lo| <= ulp(hi)/2),
-giving ~48 bits of significand — double-ish precision from pure f32 VPU ops.
+giving ~48 bits of significand — double-ish precision from pure f32 ops.
 
 Classic error-free transformations (Dekker 1971, Knuth TAOCP v2, Bailey's
-ddfun): TwoSum, Dekker split/TwoProd (no FMA assumed — TPU VPU has none
-exposed through jnp), and the usual add/mul/div/sqrt built on them.  These
-identities require IEEE round-to-nearest f32 semantics and no reassociation;
-XLA honors both (it does not apply unsafe FP rewrites to f32 elementwise
-ops).  Verified against numpy float64 in tests/test_utils.py.
+ddfun): TwoSum, Dekker split/TwoProd, and the usual add/mul/div/sqrt built
+on them.  These identities require IEEE round-to-nearest f32 semantics and
+no reassociation.  TwoProd multiplies only split halves, whose products are
+exact, so a backend that contracts a*b+c into a fused multiply-add cannot
+change its values (see _two_prod); chip_smoke.py's gate on the traced
+builder checks the whole construction on the card.  Verified against numpy
+float64 in tests/test_utils.py.
 
 All functions are elementwise and jit/vmap-compatible; a df32 number is just
 a (hi, lo) tuple of equal-shaped f32 arrays.

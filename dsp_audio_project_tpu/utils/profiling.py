@@ -1,45 +1,83 @@
-"""Tracing/profiling helpers (SURVEY.md §5: absent in the reference).
+"""Stage names, peak rates and roofline accounting.
 
-Wraps ``jax.profiler`` annotations around pipeline stages and provides a
-tiny roofline accounting model so benchmarks can report achieved fraction of
-HBM "speed of light" — the relevant bound for FIR/FFT audio work.
+``trace_stage`` names a pipeline stage in the compiled program (HLO op
+metadata), so a profiler trace attributes device work to SRC / EQ /
+spectra.  ``PEAKS`` holds the published rates of each supported card,
+keyed by ``jax.Device.device_kind``: a device that is not in the table is
+an error, never a silent default.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import time
-from typing import Dict, Iterator, Optional
+from typing import Dict, Iterator, Optional, Tuple
 
 import jax
 
-# Peak HBM bandwidth per chip, bytes/s (approx; used only for roofline %).
-HBM_PEAK_BYTES_PER_S = {
-    "TPU v4": 1.2e12,
-    "TPU v5 lite": 8.1e11,   # v5e ~810 GB/s
-    "TPU v5": 2.76e12,       # v5p
-    "TPU v6 lite": 1.64e12,
+
+@dataclasses.dataclass(frozen=True)
+class DevicePeaks:
+    """Published peak rates of one card (dense, no sparsity)."""
+
+    hbm_bytes_per_s: float
+    fp32_flops: float        # float32 outside the tensor cores
+    tf32_flops: float
+    bf16_flops: float
+    source: str
+
+
+PEAKS: Dict[str, DevicePeaks] = {
+    "NVIDIA H100 80GB HBM3": DevicePeaks(
+        hbm_bytes_per_s=3.35e12, fp32_flops=67e12, tf32_flops=495e12,
+        bf16_flops=989e12,
+        source="NVIDIA H100 SXM5 data sheet, dense rates at the 700 W "
+               "power limit",
+    ),
 }
 
 
-def device_hbm_peak() -> Optional[float]:
-    kind = jax.devices()[0].device_kind
-    for name, bw in HBM_PEAK_BYTES_PER_S.items():
-        if kind.lower().startswith(name.lower()):
-            return bw
-    return None
+def device_peaks(kind: Optional[str] = None) -> DevicePeaks:
+    """Peaks of ``kind`` (default: the first JAX device's device_kind)."""
+    if kind is None:
+        kind = jax.devices()[0].device_kind
+    try:
+        return PEAKS[kind]
+    except KeyError:
+        raise KeyError(
+            f"no peak rates for device kind {kind!r}; add a row to "
+            f"utils.profiling.PEAKS with its source"
+        ) from None
+
+
+def bound_seconds(flops: float, bytes_moved: float, flops_per_s: float,
+                  bytes_per_s: float) -> Tuple[float, str]:
+    """Least time the work could take at these rates, and which of the two
+    bounds it ('compute' or 'memory')."""
+    t_c = flops / flops_per_s
+    t_m = bytes_moved / bytes_per_s
+    return (t_c, "compute") if t_c >= t_m else (t_m, "memory")
+
+
+def roofline_fraction(bytes_moved: float, seconds: float,
+                      kind: Optional[str] = None) -> float:
+    """Achieved bandwidth as a fraction of the card's published HBM peak."""
+    if seconds <= 0:
+        raise ValueError(f"seconds must be positive, got {seconds}")
+    return (bytes_moved / seconds) / device_peaks(kind).hbm_bytes_per_s
 
 
 @contextlib.contextmanager
 def trace_stage(name: str) -> Iterator[None]:
-    """Annotate a pipeline stage in profiler traces (perfetto/tensorboard)."""
-    with jax.profiler.TraceAnnotation(name):
+    """Name a pipeline stage: ops traced inside carry ``name`` in their
+    HLO metadata (jax.named_scope), which profiler traces show."""
+    with jax.named_scope(name):
         yield
 
 
 @dataclasses.dataclass
 class StageTimer:
-    """Wall-clock stage timing with device sync — the bench's observability."""
+    """Wall-clock stage timing with device sync."""
 
     timings_s: Dict[str, float] = dataclasses.field(default_factory=dict)
 
@@ -60,11 +98,3 @@ class StageTimer:
             for k, v in sorted(self.timings_s.items(), key=lambda kv: -kv[1])
         ]
         return "\n".join(lines)
-
-
-def roofline_fraction(bytes_moved: int, seconds: float) -> Optional[float]:
-    """Achieved HBM bandwidth as a fraction of the chip's peak."""
-    peak = device_hbm_peak()
-    if peak is None or seconds <= 0:
-        return None
-    return (bytes_moved / seconds) / peak

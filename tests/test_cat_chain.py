@@ -1,21 +1,21 @@
-"""EQ-fused cat chain (round 5): the rect FIR kernel emits the EQ's
-[y0 | inj] directly (banks pre-multiplied by [group_fir^T | group_in] in
-float64 on host) and ops/eq.equalize_frames_cat finishes with the
-group-Toeplitz solve + readout.  Gates:
+"""EQ-fused cat route: the SRC operator carries the EQ's first matmul
+(G @ [group_fir^T | group_in], folded in float64 on host or on device for
+dynamic gains), so the SRC emits the EQ's [y0 | inj] directly and
+ops/eq.equalize_frames_cat finishes with the group-Toeplitz solve +
+readout.  Gates:
 
-  * cat chain == frames chain on the same config (both vs each other and
+  * cat route == frames route on the same config (both vs each other and
     vs the golden oracle) in fast AND full precision;
-  * the spectra side-rows (z from kernel-output slices, y recomputed via
-    ops/src.resample_rows) match the frames-path spectra;
+  * the spectra side-rows (z from row slices, y recomputed via
+    ops/src.resample_rows) match the frames-route spectra;
   * resample_rows rows == resample's frames rows exactly;
-  * the cat kernel lowers to TPU MLIR from CPU (Mosaic gate).
+  * dynamic-gains cat == static cat at equal gains.
 
 Workload parity target: /root/reference/modules/dsp_core.py:133-254 and
 app.py:162-167 (SRC -> EQ cascade with per-render spectra).
 """
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -42,7 +42,7 @@ def make_x(n, seed=0):
 def make_pipe(fast: bool) -> AudioPipeline:
     return AudioPipeline(PipelineConfig(
         src=SRCConfig(L=160, M=147), eq=EQConfig.from_gains(GAINS),
-        kernels=KernelConfig(eq_fast=fast, src_fast=fast, interpret=True),
+        kernels=KernelConfig(eq_fast=fast, src_fast=fast),
     ))
 
 
@@ -93,15 +93,15 @@ def test_cat_batched():
 
 
 def test_resample_rows_match_frames():
-    from dsp_audio_project_tpu.kernels import fir_frames
-    from dsp_audio_project_tpu.ops.src import make_plan, resample_rows
+    from dsp_audio_project_tpu.ops.src import (
+        make_plan, resample_frames, resample_rows,
+    )
 
     n = FS
     x = make_x(n, seed=5)
     plan = make_plan(160, 147)
     n_out = -(-n * 160 // 147)
-    yf = fir_frames(jnp.asarray(x)[None], plan, n_out, pad_frames=True,
-                    interpret=True)
+    yf = resample_frames(jnp.asarray(x)[None], plan, n_out, pad_frames=True)
     for r0, r1 in ((0, 4), (100, 113), (270, 276)):
         rows = resample_rows(jnp.asarray(x)[None], plan, r0, r1)
         ref = np.asarray(yf)[:, r0:r1]
@@ -110,78 +110,30 @@ def test_resample_rows_match_frames():
         assert snr_db(ref.ravel(), got.ravel()) > 120
 
 
-def test_cat_kernel_lowers_for_tpu():
-    from dsp_audio_project_tpu.kernels.fir_class import (
-        polyphase_fir_class_rect_cat,
-    )
-    from dsp_audio_project_tpu.ops.eq import (
-        eq_cat_weights, make_block_operators,
-    )
-    from dsp_audio_project_tpu.ops.src import make_plan
+def test_cat_emission_matches_frames_times_w_cat():
+    """The cat SRC's (y0, inj) equal the frames route's frames @ w_cat."""
+    from dsp_audio_project_tpu.ops.eq import eq_cat_weights, make_block_operators
+    from dsp_audio_project_tpu.ops.src import make_plan, resample_frames
 
+    pipe = make_pipe(False)
     plan = make_plan(160, 147)
     fs_out = 48000
     cfg = EQConfig.from_gains(GAINS)
-    bands = cfg.active_bands(fs_out)
-    ops = make_block_operators(bands, fs_out, cfg.q, 128 * plan.P, plan.P)
-    w_cat = eq_cat_weights(ops)
-    n = FS
-    n_out = -(-n * 160 // 147)
-    x = jnp.zeros((2, n), jnp.float32)
-    for precision in (jax.lax.Precision.HIGHEST, "fast"):
-        jax.jit(
-            lambda v: polyphase_fir_class_rect_cat(
-                v, plan, n_out, w_cat, precision=precision)
-        ).trace(x).lower(lowering_platforms=("tpu",))
-
-
-def test_cat_kernel_emission_matches_xla_cat():
-    """The kernel's (y0, packed inj) equals frames @ w_cat re-packed."""
-    from dsp_audio_project_tpu.kernels import fir_frames
-    from dsp_audio_project_tpu.kernels.fir_class import (
-        DPAD, polyphase_fir_class_rect_cat,
-    )
-    from dsp_audio_project_tpu.ops.eq import (
-        eq_cat_weights, make_block_operators,
-    )
-    from dsp_audio_project_tpu.ops.src import make_plan
-
-    plan = make_plan(160, 147)
-    fs_out = 48000
-    cfg = EQConfig.from_gains(GAINS)
-    bands = cfg.active_bands(fs_out)
-    ops = make_block_operators(bands, fs_out, cfg.q, 128 * plan.P, plan.P)
+    ops = make_block_operators(cfg.active_bands(fs_out), fs_out, cfg.q,
+                               128 * plan.P, plan.P)
     w_cat = eq_cat_weights(ops)
     d = ops.A.shape[0]
-    n = FS
-    x = make_x(n, seed=9)
-    n_out = -(-n * 160 // 147)
-    y0, inj_p = polyphase_fir_class_rect_cat(
-        jnp.asarray(x)[None], plan, n_out, w_cat, interpret=True)
-    frames = np.asarray(fir_frames(jnp.asarray(x)[None], plan, n_out,
-                                   pad_frames=True, interpret=True))
-    cat_ref = frames @ w_cat.astype(np.float32)
+    x = make_x(FS, seed=9)
+    n_out = -(-FS * 160 // 147)
+    (y0, inj), _, _, _ = pipe._cat_pieces(jnp.asarray(x)[None], FS)
+    frames = np.asarray(resample_frames(jnp.asarray(x)[None], plan, n_out,
+                                        pad_frames=True), np.float64)
+    cat_ref = frames @ w_cat
     F = frames.shape[1]
-    K = F // 128
     assert y0.shape == (1, F, plan.P)
-    assert inj_p.shape == (1, K, 128 * DPAD)
-    assert snr_db(cat_ref[..., :plan.P].ravel(),
-                  np.asarray(y0).ravel()) > 110
-    inj_ref = cat_ref[..., plan.P:].reshape(1, K, 128, d)
-    got = np.asarray(inj_p).reshape(1, K, 128, DPAD)
-    assert np.all(got[..., d:] == 0.0)
-    assert snr_db(inj_ref.ravel(), got[..., :d].ravel()) > 110
-
-
-def test_cat_full_program_lowers_for_tpu():
-    pipe = AudioPipeline(PipelineConfig(
-        src=SRCConfig(L=160, M=147), eq=EQConfig.from_gains(GAINS),
-        kernels=KernelConfig(eq_fast=True, src_fast=True),
-    ))
-    x = jnp.zeros((2, FS), jnp.float32)
-    jax.jit(
-        lambda v: pipe._forward_cat_spectra(v, FS), 
-    ).trace(x).lower(lowering_platforms=("tpu",))
+    assert inj.shape == (1, F, d)
+    assert snr_db(cat_ref[..., :plan.P].ravel(), np.asarray(y0).ravel()) > 110
+    assert snr_db(cat_ref[..., plan.P:].ravel(), np.asarray(inj).ravel()) > 110
 
 
 def test_cat_rejects_wrong_geometry():
@@ -189,14 +141,14 @@ def test_cat_rejects_wrong_geometry():
 
     cfg = EQConfig.from_gains(GAINS)
     y0 = jnp.zeros((256, 160), jnp.float32)
-    inj = jnp.zeros((2, 128 * 16), jnp.float32)
+    inj = jnp.zeros((256, 10), jnp.float32)
     with pytest.raises(ValueError):  # y0 width != unroll
         equalize_frames_cat(y0, inj, 48000, cfg, unroll=165)
     with pytest.raises(ValueError):  # F not multiple of 128
         equalize_frames_cat(jnp.zeros((100, 160), jnp.float32), inj,
                             48000, cfg, unroll=160)
-    with pytest.raises(ValueError):  # packed inj shape mismatch
-        equalize_frames_cat(y0, jnp.zeros((3, 128 * 16), jnp.float32),
+    with pytest.raises(ValueError):  # inj shape mismatch
+        equalize_frames_cat(y0, jnp.zeros((256, 12), jnp.float32),
                             48000, cfg, unroll=160)
     with pytest.raises(ValueError):  # bypass EQ
         equalize_frames_cat(y0, inj, 48000, EQConfig(), unroll=160)
@@ -215,8 +167,8 @@ def _run_stream(sp, xs, in_step, n):
 
 @pytest.mark.parametrize("mesh_shape", [(1, 1), (2, 2)])
 def test_cat_streaming_matches_plain(mesh_shape):
-    """Cat super-steps (EQ-fused kernel inside the shard) == plain fused
-    super-steps; also the carry survives checkpoint/resume bitwise."""
+    """Cat super-steps (EQ-fused SRC inside the shard) == plain fused
+    super-steps."""
     from dsp_audio_project_tpu.config import KernelConfig, MeshConfig
     from dsp_audio_project_tpu.parallel.mesh import build_mesh
     from dsp_audio_project_tpu.streaming import ShardedStreamProcessor
@@ -224,7 +176,7 @@ def test_cat_streaming_matches_plain(mesh_shape):
     fs = FS
     cfg = PipelineConfig(
         src=SRCConfig(L=160, M=147), eq=EQConfig.from_gains(GAINS),
-        kernels=KernelConfig(eq_fast=True, src_fast=True, interpret=True),
+        kernels=KernelConfig(eq_fast=True, src_fast=True),
     )
     mc, mb = mesh_shape
     mesh = build_mesh(MeshConfig(channel_devices=mc, block_devices=mb))
@@ -258,7 +210,7 @@ def test_cat_streaming_resume_bitwise():
     fs = FS
     cfg = PipelineConfig(
         src=SRCConfig(L=160, M=147), eq=EQConfig.from_gains(GAINS),
-        kernels=KernelConfig(eq_fast=True, src_fast=True, interpret=True),
+        kernels=KernelConfig(eq_fast=True, src_fast=True),
     )
     mesh = build_mesh(MeshConfig(channel_devices=1, block_devices=1))
     C, FL = 2, 1024
@@ -284,14 +236,15 @@ def test_cat_streaming_resume_bitwise():
 
 @pytest.mark.parametrize("mesh_shape", [(1, 8), (2, 4), (8, 1)])
 def test_cat_sharded_matches_fused(mesh_shape):
-    """EQ-fused cat shards == fused shards == oracle across mesh splits."""
+    """EQ-fused cat shards (the default route) == frame-major shards
+    (the route when y is needed) == oracle across mesh splits."""
     from dsp_audio_project_tpu.config import KernelConfig, MeshConfig
     from dsp_audio_project_tpu.parallel.mesh import build_mesh
     from dsp_audio_project_tpu.parallel.pipeline import run_sharded
 
     cfg = PipelineConfig(
         src=SRCConfig(L=160, M=147), eq=EQConfig.from_gains(GAINS),
-        kernels=KernelConfig(eq_fast=True, src_fast=True, interpret=True),
+        kernels=KernelConfig(eq_fast=True, src_fast=True),
     )
     mc, mb = mesh_shape
     mesh = build_mesh(MeshConfig(channel_devices=mc, block_devices=mb))
@@ -300,9 +253,10 @@ def test_cat_sharded_matches_fused(mesh_shape):
     rng = np.random.default_rng(17)
     xs = np.stack([make_x(n, seed=31),
                    (0.3 * rng.standard_normal(n)).astype(np.float32)])
-    z_cat, y_none, fs_out, _ = run_sharded(xs, FS, cfg, mesh, cat=True)
-    assert y_none is None
-    z_f, _, _, _ = run_sharded(xs, FS, cfg, mesh, fused=True)
+    z_cat, y_none, fs_out, sp = run_sharded(xs, FS, cfg, mesh)
+    assert sp.route == "cat" and y_none is None
+    z_f, _, _, sp_f = run_sharded(xs, FS, cfg, mesh, need_y=True)
+    assert sp_f.route == "frames"
     z_cat, z_f = np.asarray(z_cat), np.asarray(z_f)
     assert z_cat.shape == z_f.shape
     assert snr_db(z_f.ravel(), z_cat.ravel()) > 95
@@ -310,71 +264,9 @@ def test_cat_sharded_matches_fused(mesh_shape):
     assert snr_db(want[: z_cat.shape[1]], z_cat[0]) > 90
 
 
-def test_round5_experiment_kernels_parity():
-    """Dead-end ledger kernels stay correct (splitbank/rowdma vs rect)."""
-    from dsp_audio_project_tpu.kernels.experiments.fir_rowdma import (
-        polyphase_fir_rect_rowdma,
-    )
-    from dsp_audio_project_tpu.kernels.experiments.fir_splitbank import (
-        polyphase_fir_rect_splitbank,
-    )
-    from dsp_audio_project_tpu.kernels.fir_class import (
-        polyphase_fir_class_rect_frames,
-    )
-    from dsp_audio_project_tpu.ops.src import make_plan
-
-    plan = make_plan(160, 147)
-    n = FS
-    n_out = -(-n * 160 // 147)
-    x = jnp.asarray(np.stack([make_x(n, seed=41), make_x(n, seed=42)]))
-    ref = np.asarray(polyphase_fir_class_rect_frames(
-        x, plan, n_out, pad_frames=True, interpret=True))
-    for fn in (polyphase_fir_rect_splitbank, polyphase_fir_rect_rowdma):
-        got = np.asarray(fn(x, plan, n_out, pad_frames=True, interpret=True))
-        assert np.array_equal(ref, got), fn.__name__
-    # and they lower for TPU
-    for fn in (polyphase_fir_rect_splitbank, polyphase_fir_rect_rowdma):
-        jax.jit(lambda v, fn=fn: fn(v, plan, n_out, pad_frames=True)
-                ).trace(x).lower(lowering_platforms=("tpu",))
-
-
-def test_pallas_finish_matches_xla_finish():
-    """kernels/eq_finish stays correct (selectable; XLA is the measured
-    default — STATUS round-5 dead-end ledger)."""
-    from dsp_audio_project_tpu.ops.eq import equalize_frames_cat
-
-    pipe = make_pipe(True)
-    n = FS
-    x = make_x(n, seed=51)
-    (y0, injp), plan, n_out, fs_out = pipe._cat_pieces(jnp.asarray(x), FS)
-    cfg = pipe.config.eq
-    z_x = np.asarray(equalize_frames_cat(
-        y0, injp, fs_out, cfg, unroll=plan.P, fast=True, finish="xla"))
-    z_p, zr = equalize_frames_cat(
-        y0, injp, fs_out, cfg, unroll=plan.P, fast=True, finish="pallas",
-        interpret=True, rows=(100, 113))
-    z_p = np.asarray(z_p)
-    assert snr_db(z_x.ravel(), z_p.ravel()) > 140
-    assert np.array_equal(np.asarray(zr), z_p[..., 100:113, :])
-    # lowering gate for the kernel (reshape + batched transpose)
-    from dsp_audio_project_tpu.kernels.eq_finish import eq_finish_pallas
-    from dsp_audio_project_tpu.ops.eq import make_block_operators
-
-    bands = cfg.active_bands(fs_out)
-    ops = make_block_operators(bands, fs_out, cfg.q, 128 * plan.P, plan.P)
-    d = ops.A.shape[0]
-    F = y0.shape[-2]
-    jax.jit(
-        lambda a, b: eq_finish_pallas(a, b, ops.group_out)
-    ).trace(
-        jnp.zeros((2, F, plan.P), jnp.float32),
-        jnp.zeros((2, F // 128, 128 * d), jnp.float32),
-    ).lower(lowering_platforms=("tpu",))
-
-
 def test_dynamic_cat_matches_dynamic_frames():
-    """Dynamic-gains cat serving: device-rebuilt banks + packed finish ==
-    the dynamic frames path == oracle (round 5)."""
+    """Dynamic-gains cat serving: device-folded operator + cat finish ==
+    the dynamic frames path == oracle."""
     pipe = make_pipe(True)
     cfg = pipe.config
     n = FS
@@ -383,8 +275,8 @@ def test_dynamic_cat_matches_dynamic_frames():
     names = [nm for nm, _ in cfg.eq.band_centers]
     g = np.asarray([float(GAINS.get(nm, 0.0)) for nm in names])
     dops = pipe.dynamic_eq_operators(g, FS, n, builder="host")
-    banks = pipe.dynamic_cat_tables(dops)
-    zc = pipe.jit_forward_cat_dynamic_ops()(jnp.asarray(x), dops, banks, FS)
+    fold = pipe.dynamic_cat_tables(dops)
+    zc = pipe.jit_forward_cat_dynamic_ops()(jnp.asarray(x), dops, fold, FS)
     zf, _ = pipe.jit_forward_frames_dynamic_ops()(jnp.asarray(x), dops, FS)
     a = np.asarray(zf).reshape(-1)[:n_out]
     b = np.asarray(zc).reshape(-1)[:n_out]
@@ -394,45 +286,50 @@ def test_dynamic_cat_matches_dynamic_frames():
     # a DIFFERENT gain vector through the same compiled functions
     g2 = np.asarray([float(((i * 5) % 25) - 12) for i in range(len(names))])
     dops2 = pipe.dynamic_eq_operators(g2, FS, n, builder="host")
-    banks2 = pipe.dynamic_cat_tables(dops2)
+    fold2 = pipe.dynamic_cat_tables(dops2)
     zc2 = pipe.jit_forward_cat_dynamic_ops()(
-        jnp.asarray(x), dops2, banks2, FS)
+        jnp.asarray(x), dops2, fold2, FS)
     zf2, _ = pipe.jit_forward_frames_dynamic_ops()(jnp.asarray(x), dops2, FS)
     assert snr_db(np.asarray(zf2).reshape(-1)[:n_out],
                   np.asarray(zc2).reshape(-1)[:n_out]) > 95
 
 
-def test_dynamic_cat_lowers_for_tpu():
-    from dsp_audio_project_tpu.ops.eq_dynamic import (
-        CatDynTables, build_cat_tables_dyn,
-    )
-    from dsp_audio_project_tpu.ops.src import make_plan
+def test_dynamic_cat_equals_static_cat_at_equal_gains():
+    """The device-folded dynamic cat route reproduces the host-folded
+    static cat route when the gains match."""
+    pipe = make_pipe(True)
+    cfg = pipe.config
+    x = make_x(FS, seed=63)
+    g = np.asarray([float(GAINS.get(nm, 0.0)) for nm, _ in cfg.eq.band_centers])
+    dops = pipe.dynamic_eq_operators(g, FS, FS, builder="host")
+    z_dyn = pipe.jit_forward_cat_dynamic_ops()(
+        jnp.asarray(x), dops, pipe.dynamic_cat_tables(dops), FS)
+    z_static = pipe.jit_forward_cat()(jnp.asarray(x), FS)
+    assert z_dyn.shape == z_static.shape
+    assert snr_db(np.asarray(z_static).ravel(), np.asarray(z_dyn).ravel()) > 100
 
-    pipe = AudioPipeline(PipelineConfig(
-        src=SRCConfig(L=160, M=147), eq=EQConfig.from_gains(GAINS),
-        kernels=KernelConfig(eq_fast=True, src_fast=True),
-    ))
-    n = FS
-    names = [nm for nm, _ in pipe.config.eq.band_centers]
-    g = np.zeros(len(names))
-    dops = pipe.dynamic_eq_operators(g, FS, n, builder="host")
-    tab_shape = jax.eval_shape(
-        lambda o: build_cat_tables_dyn(make_plan(160, 147), o, fast=True),
-        dops,
-    )
-    tables = CatDynTables(
-        banks=jnp.zeros(tab_shape.banks.shape, tab_shape.banks.dtype),
-        toe_pad=jnp.zeros(tab_shape.toe_pad.shape, tab_shape.toe_pad.dtype),
-    )
-    fwd = pipe.jit_forward_cat_dynamic_ops()
-    fwd.trace(
-        jnp.zeros((2, n), jnp.float32), dops, tables, FS,
-    ).lower(lowering_platforms=("tpu",))
+
+def test_dynamic_cat_rejects_wrong_geometry():
+    from dsp_audio_project_tpu.ops.eq_dynamic import equalize_dynamic_cat_ops
+
+    pipe = make_pipe(True)
+    g = np.zeros(len(pipe.config.eq.band_centers))
+    dops = pipe.dynamic_eq_operators(g, FS, FS, builder="host")
+    d = dops.group_in.shape[-1]
+    with pytest.raises(ValueError):  # F not a multiple of the block
+        equalize_dynamic_cat_ops(jnp.zeros((100, 160)), jnp.zeros((100, d)),
+                                 dops)
+    with pytest.raises(ValueError):  # inj shape mismatch
+        equalize_dynamic_cat_ops(jnp.zeros((256, 160)),
+                                 jnp.zeros((256, d + 1)), dops)
+    F = 128 * dops.carry_w.shape[0] // d      # the geometry dops serve
+    z = equalize_dynamic_cat_ops(jnp.zeros((F, 160)), jnp.zeros((F, d)), dops)
+    assert z.shape == (F, 160)
 
 
 def test_streaming_dynamic_cat_with_midstream_gain_change():
-    """Dynamic-cat super-steps (traced device-rebuilt banks) == plain
-    dynamic super-steps, including a set_gains swap mid-stream."""
+    """Dynamic-cat super-steps (operator folded on device per gain change)
+    == plain dynamic super-steps, including a set_gains swap mid-stream."""
     from dsp_audio_project_tpu.config import KernelConfig, MeshConfig
     from dsp_audio_project_tpu.parallel.mesh import build_mesh
     from dsp_audio_project_tpu.streaming import ShardedStreamProcessor
@@ -440,7 +337,7 @@ def test_streaming_dynamic_cat_with_midstream_gain_change():
     fs = FS
     cfg = PipelineConfig(
         src=SRCConfig(L=160, M=147), eq=EQConfig(),
-        kernels=KernelConfig(eq_fast=True, src_fast=True, interpret=True),
+        kernels=KernelConfig(eq_fast=True, src_fast=True),
     )
     mesh = build_mesh(MeshConfig(channel_devices=1, block_devices=2))
     C, FL = 2, 1024
@@ -475,19 +372,19 @@ def test_streaming_dynamic_cat_with_midstream_gain_change():
 
 
 def test_streaming_explicit_small_frames_per_shard_still_works():
-    """A pre-round-5 frames_per_shard (not 128-aligned) must keep working:
-    the cat alignment backs off instead of raising (review finding)."""
+    """A small frames_per_shard (not 128-aligned) keeps working: the cat
+    fold has no alignment requirement, so cat super-steps engage."""
     from dsp_audio_project_tpu.config import KernelConfig, MeshConfig
     from dsp_audio_project_tpu.parallel.mesh import build_mesh
     from dsp_audio_project_tpu.streaming import ShardedStreamProcessor
 
     cfg = PipelineConfig(
         src=SRCConfig(L=160, M=147), eq=EQConfig.from_gains(GAINS),
-        kernels=KernelConfig(eq_fast=True, src_fast=True, interpret=True),
+        kernels=KernelConfig(eq_fast=True, src_fast=True),
     )
     mesh = build_mesh(MeshConfig(channel_devices=1, block_devices=1))
     sp = ShardedStreamProcessor(cfg, FS, mesh, 1, frames_per_shard=64)
-    assert not sp._cat and not sp._cat_dyn
+    assert sp._cat and not sp._cat_dyn
     n = FS
     x = make_x(n, seed=91)[None]
     outs = [sp.process(x), sp.flush()]
@@ -507,57 +404,13 @@ def test_cat_rows_edges_match_full_output(rows):
     pipe = make_pipe(True)
     n = FS
     x = make_x(n, seed=71)
-    (y0, injp), plan, n_out, fs_out = pipe._cat_pieces(jnp.asarray(x), FS)
+    (y0, inj), plan, n_out, fs_out = pipe._cat_pieces(jnp.asarray(x), FS)
     cfg = pipe.config.eq
     z, z_rows = equalize_frames_cat(
-        y0, injp, fs_out, cfg, unroll=plan.P, fast=True, rows=rows)
+        y0, inj, fs_out, cfg, unroll=plan.P, fast=True, rows=rows)
     r0, r1 = rows
     ref = np.asarray(z)[..., r0:r1, :]
     got = np.asarray(z_rows)
     assert got.shape == ref.shape
     # identical math on the same inputs -> float-exact
     assert snr_db(ref.ravel(), got.ravel()) > 130
-
-
-@pytest.mark.parametrize("L,M", [(160, 147), (3, 8)])
-def test_cat_kernel_staged_split_matches_and_lowers(L, M):
-    """staged_split=True (pre-split bf16 staging; measured off, kept
-    selectable — kernels/experiments ledger): same samples to ~100 dB of
-    the default in-kernel split, and it lowers to TPU MLIR.  (3, 8) covers
-    the narrow-stride s=8 / nc=2 rect geometry."""
-    from dsp_audio_project_tpu.kernels.fir_class import (
-        polyphase_fir_class_rect_cat, rect_supported,
-    )
-    from dsp_audio_project_tpu.ops.eq import (
-        eq_cat_weights, make_block_operators,
-    )
-    from dsp_audio_project_tpu.ops.src import make_plan
-
-    plan = make_plan(L, M)
-    assert rect_supported(plan)
-    fs_out = 48000
-    cfg = EQConfig.from_gains(GAINS)
-    bands = cfg.active_bands(fs_out)
-    ops = make_block_operators(bands, fs_out, cfg.q, 128 * plan.P, plan.P)
-    w_cat = eq_cat_weights(ops)
-    n = FS
-    x = make_x(n, seed=3)
-    n_out = -(-n * L // M)
-    base = polyphase_fir_class_rect_cat(
-        jnp.asarray(x), plan, n_out, w_cat, precision="fast",
-        interpret=True, staged_split=False)
-    split = polyphase_fir_class_rect_cat(
-        jnp.asarray(x), plan, n_out, w_cat, precision="fast",
-        interpret=True, staged_split=True)
-    for a, b in zip(base, split):
-        assert snr_db(np.asarray(a).ravel(), np.asarray(b).ravel()) > 95
-    jax.jit(
-        lambda v: polyphase_fir_class_rect_cat(
-            v, plan, n_out, w_cat, precision="fast", staged_split=True)
-    ).trace(jnp.zeros((2, n), jnp.float32)).lower(
-        lowering_platforms=("tpu",))
-    with pytest.raises(ValueError):
-        polyphase_fir_class_rect_cat(
-            jnp.asarray(x), plan, n_out, w_cat,
-            precision=jax.lax.Precision.HIGHEST, interpret=True,
-            staged_split=True)

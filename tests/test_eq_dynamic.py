@@ -164,7 +164,7 @@ def test_pipeline_dynamic_ops_matches_inline():
     x = make_test_signal(30000, fs, seed=23)
     cfg = PipelineConfig(
         src=SRCConfig(L=160, M=147), eq=EQConfig(),
-        kernels=KernelConfig(interpret=True),
+        kernels=KernelConfig(),
     )
     pipe = AudioPipeline(cfg)
     gains = jnp.asarray((5.0, 0.0, -7.0, 2.0, 0.0, 9.0))
@@ -268,7 +268,7 @@ def test_pipeline_host_builder_matches_oracle():
     x = make_test_signal(30000, fs, seed=31)
     src = SRCConfig(L=160, M=147)
     cfg = PipelineConfig(
-        src=src, eq=EQConfig(), kernels=KernelConfig(interpret=True),
+        src=src, eq=EQConfig(), kernels=KernelConfig(),
     )
     pipe = AudioPipeline(cfg)
     gains = (5.0, 0.0, -7.0, 2.0, 0.0, 9.0)

@@ -1,27 +1,30 @@
-"""Unit tier: FFT kernels vs numpy oracle (SURVEY.md §4)."""
+"""Unit tier: FFT ops vs numpy oracle (SURVEY.md §4)."""
 import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from dsp_audio_project_tpu.ops.fft import fft, ifft, rfft, rfft_magnitude
+from dsp_audio_project_tpu.ops.fft import (
+    check_pow2, fft_magnitude, rfft_magnitude,
+)
+from dsp_audio_project_tpu.ops.spectrum import angular_spectrum
 
 
 @pytest.mark.parametrize("n", [1, 2, 8, 256, 2048])
 def test_fft_matches_numpy(n, rng):
     x = rng.standard_normal((3, n)) + 1j * rng.standard_normal((3, n))
-    got = np.asarray(fft(jnp.asarray(x, dtype=jnp.complex64)))
-    want = np.fft.fft(x, axis=-1)
-    scale = max(1.0, np.max(np.abs(want)))
+    got = np.asarray(fft_magnitude(jnp.asarray(x, dtype=jnp.complex64)))
+    want = np.abs(np.fft.fft(x, axis=-1))
+    scale = max(1.0, np.max(want))
     assert np.max(np.abs(got - want)) / scale < 1e-5
 
 
 @pytest.mark.parametrize("n", [2, 1024, 2048])
 def test_rfft_matches_numpy(n, rng):
     x = rng.standard_normal((5, n)).astype(np.float32)
-    got = np.asarray(rfft(jnp.asarray(x)))
-    want = np.fft.rfft(x, axis=-1)
+    got = np.asarray(rfft_magnitude(jnp.asarray(x)))
+    want = np.abs(np.fft.rfft(x, axis=-1))
     assert got.shape == want.shape
-    scale = np.max(np.abs(want))
+    scale = np.max(want)
     assert np.max(np.abs(got - want)) / scale < 1e-5
 
 
@@ -32,79 +35,47 @@ def test_rfft_magnitude_batched(rng):
     assert np.max(np.abs(got - want)) / np.max(want) < 1e-5
 
 
-def test_ifft_roundtrip(rng):
-    x = rng.standard_normal((3, 256)) + 1j * rng.standard_normal((3, 256))
-    xj = jnp.asarray(x, dtype=jnp.complex64)
-    back = np.asarray(ifft(fft(xj)))
-    assert np.max(np.abs(back - x)) < 1e-4
+@pytest.mark.parametrize("n", [1, 2, 1024, 1 << 20])
+def test_check_pow2_log2(n):
+    assert check_pow2(n) == int(np.log2(n))
 
 
-@pytest.mark.parametrize("n1", [2, 8, 16, 32])
-def test_fft_four_step_matches_numpy(n1, rng):
-    from dsp_audio_project_tpu.ops.fft import fft_four_step
-
-    x = rng.standard_normal((3, 2048)) + 1j * rng.standard_normal((3, 2048))
-    got = np.asarray(fft_four_step(jnp.asarray(x, jnp.complex64), n1=n1))
-    want = np.fft.fft(x)
-    assert np.max(np.abs(got - want)) / np.max(np.abs(want)) < 1e-5
-
-
-@pytest.mark.parametrize("n,n1", [(512, 4), (1024, 8), (2048, 16)])
-def test_rfft_matmul_matches_numpy(n, n1, rng):
-    from dsp_audio_project_tpu.ops.fft import rfft_matmul
-
-    x = rng.standard_normal((4, n)).astype(np.float32)
-    got = np.asarray(rfft_matmul(jnp.asarray(x), n1=n1))
-    want = np.fft.rfft(x, axis=-1)
+@pytest.mark.parametrize("lead", [(), (2,), (3, 2), (1, 1, 4)])
+def test_fft_batched_leading_dims(lead, rng):
+    shape = lead + (512,)
+    x = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+    got = np.asarray(fft_magnitude(jnp.asarray(x, jnp.complex64)))
+    want = np.abs(np.fft.fft(x))
     assert got.shape == want.shape
-    assert np.max(np.abs(got - want)) / np.max(np.abs(want)) < 1e-5
+    assert np.max(np.abs(got - want)) / np.max(want) < 1e-5
+
+
+@pytest.mark.parametrize("n", [512, 1024, 2048])
+def test_angular_spectrum_matches_numpy(n, rng):
+    """The two-sided view is |fftshift(FFT)| over [-pi, pi), like the
+    reference's np.fft.fft + fftshift (app.py:322-327)."""
+    x = rng.standard_normal((4, n)).astype(np.float32)
+    w, mag = angular_spectrum(jnp.asarray(x))
+    want = np.abs(np.fft.fftshift(np.fft.fft(x, axis=-1), axes=-1))
+    assert w.shape == (n,) and mag.shape == (4, n)
+    assert np.max(np.abs(np.asarray(mag) - want)) / np.max(want) < 1e-5
 
 
 def test_non_pow2_rejected():
     # The reference FFT crashes with a broadcast error on non-pow2 input
     # (SURVEY.md C2); the build rejects cleanly instead.
     with pytest.raises(ValueError, match="power of two"):
-        fft(jnp.zeros(12, dtype=jnp.complex64))
+        fft_magnitude(jnp.zeros(12, dtype=jnp.complex64))
+    with pytest.raises(ValueError, match="power of two"):
+        angular_spectrum(jnp.zeros(12, dtype=jnp.float32))
 
 
-def test_two_level_rfft_matches_numpy():
-    """HBM-staged two-level four-step (round 5): N = 1048576 parity."""
-    import numpy as np
-
-    from dsp_audio_project_tpu.kernels.rfft import rfft_pallas_two_level
-
+def test_rfft_magnitude_one_million():
+    """Long-window spectrum size: N = 1048576 parity."""
     rng = np.random.default_rng(5)
     n = 1 << 20
     x = rng.standard_normal((2, n)).astype(np.float32)
-    got = np.asarray(
-        rfft_pallas_two_level(jnp.asarray(x), magnitude=True,
-                              interpret=True)
-    )
+    got = np.asarray(rfft_magnitude(jnp.asarray(x)))
     want = np.abs(np.fft.rfft(x))
     assert got.shape == (2, n // 2 + 1)
-    rel = np.max(np.abs(got - want)) / np.max(want)
-    assert rel < 1e-4
-    # complex (non-magnitude) form too
-    z = np.asarray(
-        rfft_pallas_two_level(jnp.asarray(x[:1]), interpret=True)
-    )
-    zi = np.fft.rfft(x[:1])
-    assert np.max(np.abs(z - zi)) / np.max(np.abs(zi)) < 1e-4
-
-
-def test_two_level_rfft_routed_and_lowers():
-    import numpy as np
-
-    from dsp_audio_project_tpu.kernels.rfft import rfft_pallas_two_level
-    from dsp_audio_project_tpu.ops.fft import _rfft_kernel_plan
-
-    import jax
-
-    assert _rfft_kernel_plan(1 << 20) == ("two_level", None)
-    assert _rfft_kernel_plan(1 << 21) is None  # compile-fails on v5e; see plan docstring
-    x = jnp.zeros((2, 1 << 20), jnp.float32)
-    for precision in (jax.lax.Precision.HIGHEST, "fast"):
-        jax.jit(
-            lambda v: rfft_pallas_two_level(v, magnitude=True,
-                                            precision=precision)
-        ).trace(x).lower(lowering_platforms=("tpu",))
+    assert np.max(np.abs(got - want)) / np.max(want) < 1e-4

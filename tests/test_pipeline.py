@@ -106,18 +106,18 @@ def test_wav_roundtrip_through_chain(tmp_path, audio_short):
     assert np.max(np.abs(y)) <= 1.0
 
 
-def test_chain_pallas_kernel_paths(audio_short):
-    """KernelConfig path forcing: the Pallas chain matches the jnp chain."""
+def test_chain_fast_flags_match_full_precision(audio_short):
+    """src_fast/eq_fast (bf16x3 matmuls) on the flat route match the
+    full-precision chain."""
     from dsp_audio_project_tpu.config import KernelConfig
 
     x, fs = audio_short
     base = dict(src=SRCConfig(L=3, M=2), eq=EQConfig.from_gains({"Bass": 6}))
-    jnp_cfg = PipelineConfig(**base, kernels=KernelConfig(
-        fir_path="jnp", iir_path="jnp"))
-    pal_cfg = PipelineConfig(**base, kernels=KernelConfig(
-        fir_path="pallas", iir_path="pallas", interpret=True))
-    z1, fs1 = process(x, fs, jnp_cfg)
-    z2, fs2 = process(x, fs, pal_cfg)
+    full_cfg = PipelineConfig(**base)
+    fast_cfg = PipelineConfig(**base, kernels=KernelConfig(
+        src_fast=True, eq_fast=True))
+    z1, fs1 = process(x, fs, full_cfg)
+    z2, fs2 = process(x, fs, fast_cfg)
     assert fs1 == fs2
     assert z1.shape == z2.shape
     assert snr_db(np.asarray(z1), np.asarray(z2)) > 80.0
@@ -144,8 +144,7 @@ def test_gain_space_property_sweep():
 def test_long_form_minutes():
     """Memory + correctness at production scale: minutes of audio.
 
-    (Two minutes on the CPU test backend; the 10-minute variant runs in
-    the bench/verify flow on TPU where it takes ~12 ms.)"""
+    (Two minutes on the CPU test backend.)"""
     from conftest import make_test_signal
 
     fs = 44100
@@ -170,7 +169,7 @@ def test_fused_frames_chain_matches_flat_path(audio_44k):
     x, fs = audio_44k
     cfg = PipelineConfig(src=SRCConfig(L=160, M=147),
                          eq=EQConfig.from_gains({"Bass": 6.0, "Presence": -4.0}),
-                         kernels=KernelConfig(interpret=True))
+                         kernels=KernelConfig())
     pipe = AudioPipeline(cfg)
     assert pipe.frames_supported(len(x))
     n_out = cfg.src.output_length(len(x))
@@ -191,7 +190,7 @@ def test_fused_frames_dynamic_matches_static(audio_44k):
     gains = {"Bass": 6.0, "Presence": -4.0}
     cfg = PipelineConfig(src=SRCConfig(L=160, M=147),
                          eq=EQConfig.from_gains(gains),
-                         kernels=KernelConfig(interpret=True))
+                         kernels=KernelConfig())
     pipe = AudioPipeline(cfg)
     n_out = cfg.src.output_length(len(x))
     fwd = pipe.jit_forward_frames_dynamic()
@@ -218,7 +217,7 @@ def test_full_chain_spectra_forwards(audio_44k):
     x, fs = audio_44k
     cfg = PipelineConfig(src=SRCConfig(L=160, M=147),
                          eq=EQConfig.from_gains(GAINS),
-                         kernels=KernelConfig(interpret=True))
+                         kernels=KernelConfig())
     pipe = AudioPipeline(cfg)
     n_out = cfg.src.output_length(len(x))
     fs_out = cfg.src.output_rate(fs)

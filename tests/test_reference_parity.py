@@ -3,7 +3,7 @@
 Runs only where the reference checkout is mounted (/root/reference): imports
 the reference's own modules and asserts our numpy oracle reproduces them
 bit-for-bit (or to float noise).  This pins the oracle to the ground truth;
-every other test then measures the TPU path against the oracle.
+every other test then measures the device path against the oracle.
 """
 import os
 import sys

@@ -82,24 +82,33 @@ def test_sharded_equals_unsharded_bitwise_fir():
 
 @pytest.mark.parametrize("nblocks", [2, 4])
 def test_fused_sharded_matches_oracle(nblocks):
-    """Fused frame-major shards (shear kernel, interpret mode) match the
-    oracle and the non-fused sharded path."""
+    """Frame-major shards (the cat route by default, the frames route when
+    y is needed) match the oracle and the unsharded flat route."""
+    import jax.numpy as jnp
+
+    from dsp_audio_project_tpu import AudioPipeline
+
     fs = 44100
     x = make_test_signal(44100, fs, seed=13)
     cfg = PipelineConfig(
         src=SRCConfig(L=160, M=147),
         eq=EQConfig.from_gains(GAINS),
-        kernels=KernelConfig(iir_block=256, interpret=True),
+        kernels=KernelConfig(iir_block=256),
     )
     mesh = build_mesh(MeshConfig(channel_devices=1, block_devices=nblocks))
-    z, y, fs_out, _ = run_sharded(x, fs, cfg, mesh, fused=True)
+    z, y, fs_out, sp = run_sharded(x, fs, cfg, mesh)
+    assert sp.route == "cat" and y is None
     want, _ = pipeline_oracle(x, fs, cfg.src, cfg.eq)
     assert fs_out == 48000
     z = np.asarray(z)[0]
     assert z.shape == want.shape
     assert snr_db(want, z) > 60.0
-    z_ref, *_ = run_sharded(x, fs, cfg, mesh, fused=False)
-    assert snr_db(np.asarray(z_ref)[0], z) > 110.0
+    z_ref, y_ref = AudioPipeline(cfg).jit_forward()(jnp.asarray(x), fs)
+    assert snr_db(np.asarray(z_ref), z) > 110.0
+    z_f, y_f, _, sp_f = run_sharded(x, fs, cfg, mesh, need_y=True)
+    assert sp_f.route == "frames"
+    assert snr_db(np.asarray(z_ref), np.asarray(z_f)[0]) > 110.0
+    assert snr_db(np.asarray(y_ref), np.asarray(y_f)[0]) > 110.0
 
 
 def test_eq_bypass_sharded():

@@ -255,12 +255,12 @@ def test_sharded_stream_bypass_paths():
     assert min(snr_db(z_ref[c], z[c]) for c in range(C)) > 110.0
 
 
-# ---- round-4: fused Pallas super-steps + dynamic gains ---------------------
+# ---- fused (frame-major) super-steps + dynamic gains ----------------------
 
 
-def test_sharded_stream_fused_pallas():
-    """Fused super-step (production Pallas class kernel inside the shard,
-    interpret mode on CPU) == the one-shot chain and the XLA stream."""
+def test_sharded_stream_fused_frames():
+    """Frame-major super-step (the cat route: EQ-fused SRC inside the
+    shard) == the one-shot flat chain and the one-shot frames route."""
     import jax.numpy as jnp
 
     from dsp_audio_project_tpu import AudioPipeline
@@ -271,27 +271,24 @@ def test_sharded_stream_fused_pallas():
     cfg = PipelineConfig(
         src=SRCConfig(L=160, M=147),
         eq=EQConfig.from_gains({"Bass": 6, "High Mids": -4}),
-        kernels=KernelConfig(iir_block=1024, interpret=True),
+        kernels=KernelConfig(iir_block=1024),
     )
     mesh = _mesh(1, 2)
-    sp = ShardedStreamProcessor(cfg, fs, mesh, C, fused=True)
-    assert sp._fused
+    sp = ShardedStreamProcessor(cfg, fs, mesh, C)
+    assert sp._fused and sp._cat
     z = _stream_through(sp, x, [5000, 9000, n])
 
-    z_ref = np.asarray(AudioPipeline(cfg).jit_forward()(jnp.asarray(x), fs)[0])
+    pipe = AudioPipeline(cfg)
+    z_ref = np.asarray(pipe.jit_forward()(jnp.asarray(x), fs)[0])
     assert z.shape == z_ref.shape
     q = min(snr_db(z_ref[c], z[c]) for c in range(C))
     assert q > 100.0, f"fused stream vs one-shot: {q:.1f} dB"
 
-    # And against the XLA (non-fused) stream with identical chunking.
-    cfg_x = PipelineConfig(src=cfg.src, eq=cfg.eq,
-                           kernels=KernelConfig(iir_block=1024))
-    z_xla = _stream_through(
-        ShardedStreamProcessor(cfg_x, fs, mesh, C, fused=False),
-        x, [5000, 9000, n],
-    )
-    q = min(snr_db(z_xla[c], z[c]) for c in range(C))
-    assert q > 100.0, f"fused vs XLA stream: {q:.1f} dB"
+    # And against the one-shot frame-major route.
+    zf = np.asarray(pipe.jit_forward_frames()(jnp.asarray(x), fs)[0])
+    z_frames = zf.reshape(C, -1)[:, : z.shape[1]]
+    q = min(snr_db(z_frames[c], z[c]) for c in range(C))
+    assert q > 100.0, f"fused stream vs one-shot frames: {q:.1f} dB"
 
 
 def _all_gains(vals):
@@ -404,9 +401,12 @@ def test_sharded_stream_midstream_gain_change():
     assert q > 80.0, f"mid-stream change vs segment oracle: {q:.1f} dB"
 
 
-def test_sharded_stream_dynamic_fused_interpret():
-    """The full serving shape: dynamic gains + fused Pallas super-step
-    (interpret on CPU) agrees with the dynamic XLA stream."""
+def test_sharded_stream_dynamic_fused():
+    """The full serving shape: dynamic gains + frame-major super-step
+    (dynamic cat) agrees with the one-shot dynamic frames route."""
+    import jax.numpy as jnp
+
+    from dsp_audio_project_tpu import AudioPipeline
     from dsp_audio_project_tpu.streaming import ShardedStreamProcessor
 
     fs, C, n = 44100, 2, 20000
@@ -415,19 +415,16 @@ def test_sharded_stream_dynamic_fused_interpret():
     cfg_p = PipelineConfig(
         src=SRCConfig(L=160, M=147),
         eq=EQConfig.from_gains(_all_gains(gains)),
-        kernels=KernelConfig(iir_block=1024, interpret=True),
+        kernels=KernelConfig(iir_block=1024),
     )
-    cfg_x = PipelineConfig(src=cfg_p.src, eq=cfg_p.eq,
-                           kernels=KernelConfig(iir_block=1024))
     mesh = _mesh(1, 2)
-    z_p = _stream_through(
-        ShardedStreamProcessor(cfg_p, fs, mesh, C, fused=True,
-                               gains_db=gains), x, [9000, n],
-    )
-    z_x = _stream_through(
-        ShardedStreamProcessor(cfg_x, fs, mesh, C, fused=False,
-                               gains_db=gains), x, [9000, n],
-    )
+    sp = ShardedStreamProcessor(cfg_p, fs, mesh, C, gains_db=gains)
+    assert sp._cat_dyn
+    z_p = _stream_through(sp, x, [9000, n])
+    pipe = AudioPipeline(cfg_p)
+    dops = pipe.dynamic_eq_operators(gains, fs, n, builder="host")
+    zf, _ = pipe.jit_forward_frames_dynamic_ops()(jnp.asarray(x), dops, fs)
+    z_x = np.asarray(zf).reshape(C, -1)[:, : z_p.shape[1]]
     assert z_p.shape == z_x.shape
     q = min(snr_db(z_x[c], z_p[c]) for c in range(C))
-    assert q > 100.0, f"dynamic fused vs dynamic XLA: {q:.1f} dB"
+    assert q > 100.0, f"dynamic fused stream vs one-shot dynamic: {q:.1f} dB"
